@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's crec2 predict path at the full width of the repo's
-flagship model (criteo-shaped FTRL: 2^22 buckets, 39 keys per row, 98,304-row
-blocks) on the card, and fails (non-zero exit) on any error:
+Drives the port's crec2 predict and training paths at the full width of the
+repo's flagship model (criteo-shaped FTRL: 2^22 buckets, 39 keys per row,
+98,304-row blocks) on the card, and fails (non-zero exit) on any error:
 
 1. prints torch, CUDA, nvcc versions and the card's name and power limit;
 2. builds every kernel from ``wormhole_tpu_torch/ops/csrc`` (one ``nvcc`` per
@@ -23,8 +23,27 @@ blocks) on the card, and fails (non-zero exit) on any error:
 7. times the kernel, its plain version and a one-call yardstick
    (``torch.sparse.mm`` on a CSR matrix of the same pairs) per block with CUDA
    events, beside the bound the card's memory rate sets;
-8. prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-   as the last line ``{"ok": true, "device": {...}}``.
+8. holds the training kernels against their plain torch versions at full
+   width: ``tile_bwd`` on a uniform block, a spill block and a fuse=8 spec
+   (2^25 buckets), the fused steps ``tile_step_grad`` (with and without the
+   spill grid) and ``tile_step_update``, and the split path's ``loss_dual``
+   and ``ftrl_push``; requires two runs to be bitwise equal and the fused
+   steps to equal the split chain bitwise;
+9. writes a 4-block spill file (ovf_cap 1024, a hot key) and a 4-block
+   ovf_cap=0 file from ``--seed`` and trains 2 passes with validation on each
+   resolution: ``fused`` on the spill file through ``main`` (also predicting
+   and saving the model), then in-process ``fused`` and ``split`` on both
+   files. Requires one launch per block and pass on the resolved kernel,
+   fused and split trained slots bitwise equal, and per-pass train objv and
+   validation objv/AUC/accuracy within 1e-4 of a float64 numpy oracle of the
+   same FTRL steps, and the final weights within the stated per-bucket
+   bound; prints examples per second of each run;
+10. times each training kernel per full-width block beside its bound, its
+    plain version, the split chain, and (for ``tile_bwd``, also on the
+    fuse=8 spec) the one-call yardstick ``torch.sparse.mm`` of the
+    transposed CSR;
+11. prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
+    as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
 result when ``torch.cuda.is_available()`` is false.
@@ -52,6 +71,11 @@ HOT_ROWS = 600        # rows of block 1 sharing one key: ~300 spill pairs
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PASSES = 2            # training passes per run
+LAMBDA = (0.5, 0.1)   # FTRL L1/L2 of the training runs
+ALPHA, BETA = 0.1, 1.0   # Config's lr_eta/lr_beta defaults
+NB_FUSE8 = 1 << 25    # the spec make_spec gives fuse=8 (cap 256)
+VOCAB = 1 << 20       # distinct keys of the training files
 
 
 def require(cond: bool, msg: str) -> None:
@@ -116,6 +140,109 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return float(np.median(ts))
 
 
+def grad_tolerance(torch, tt, pw, spec, d_a, d_b):
+    """Per-bucket bound between two gradients from duals d_a and d_b: the
+    f32 reorder term 4·k·2⁻²⁴·Σ|bf16 d| over the bucket's k pairs, plus
+    Σ|bf16(d_a) − bf16(d_b)| (two duals a rounding apart may round to
+    neighbouring bf16 values)."""
+    bucket, row, valid = tt.decode_pairs(pw, spec)
+    b, r = bucket[valid], row[valid]
+    da = d_a.to(torch.bfloat16).double()
+    db = d_b.to(torch.bfloat16).double()
+    z = lambda: torch.zeros(spec.nb, dtype=torch.float64, device=pw.device)
+    mag = z().index_add_(0, b, da.abs()[r])
+    cnt = z().index_add_(0, b, torch.ones_like(r, dtype=torch.float64))
+    flip = z().index_add_(0, b, (da - db).abs()[r])
+    return 4 * cnt.clamp(min=1) * 2.0 ** -24 * mag + flip + 1e-30
+
+
+def slot_tolerance(torch, old, g, new, gtol):
+    """Per-slot bound on an FTRL update (3, nb) from the same start: the f32
+    roundings of z' = (z + g) − σ·w (σ from the cancelling cg' − cg),
+    carried into w' through the shrink and the α/β curvature, plus what a
+    per-bucket gradient bound ``gtol`` moves (z' by gtol·(1 + |w|/α))."""
+    eps = 8 * 2.0 ** -24
+    o, n = old.double(), new.double()
+    w, z, cg = o[0].abs(), o[1].abs(), o[2]
+    dz = (eps * (z + g.double().abs()) + eps * (n[2].abs() + cg) / ALPHA * w
+          + gtol * (1 + w / ALPHA))
+    dw = ALPHA / BETA * (dz + eps * (n[1].abs() + LAMBDA[0]))
+    return torch.stack([dw + eps * n[0].abs(), dz,
+                        eps * n[2].abs() + gtol]) + 1e-30
+
+
+def oracle_blocks(torch, tt, path, spec, dev):
+    """Per block of a crec2 file, as numpy: the tile pairs' (bucket, row),
+    the spill pairs' (bucket, row) and the u8 labels."""
+    from wormhole_tpu_torch.data.crec import block_tensors, iter_packed2
+    out = []
+    for views, _rows in iter_packed2(path):
+        pw = block_tensors(views)["pw"].to(dev)
+        b, r, v = tt.decode_pairs(pw, spec)
+        sp = views["ovf_b"] != 0xFFFFFFFF
+        out.append((b[v].cpu().numpy(), r[v].cpu().numpy(),
+                    views["ovf_b"][sp].astype(np.int64),
+                    views["ovf_r"][sp].astype(np.int64),
+                    views["labels"].copy()))
+    return out
+
+
+def oracle_margins(w, blk, rows):
+    """Tile pairs add bf16(f32 w), spill pairs f32 w, summed in float64."""
+    pb, pr, sb, sr, _ = blk
+    w32 = w.astype(np.float32)
+    return (np.bincount(pr, weights=bf16(w32).astype(np.float64)[pb],
+                        minlength=rows)
+            + np.bincount(sr, weights=w32[sb].astype(np.float64),
+                          minlength=rows))
+
+
+def oracle_train(blocks, nb, rows, auc_np):
+    """Float64 FTRL over the blocks, PASSES passes, logit loss, with the
+    kernels' bf16 rounding of w (tile pairs) and of the dual (tile pairs;
+    spill pairs carry f32 values). Returns the final w and, per pass, the
+    train objv per example and the validation (same blocks) objv per
+    example, pooled AUC and mean per-block accuracy."""
+    w, z, cg = np.zeros(nb), np.zeros(nb), np.zeros(nb)
+    log = []
+    for _ in range(PASSES):
+        objv, n = 0.0, 0
+        for blk in blocks:
+            pb, pr, sb, sr, lab = blk
+            m = oracle_margins(w, blk, rows)
+            real = lab != 255
+            y = np.where(lab == 1, 1.0, -1.0)
+            objv += float(np.logaddexp(0, -y * m)[real].sum())
+            n += int(real.sum())
+            dual = np.where(real, -y / (1 + np.exp(y * m)), 0.0)
+            d32 = dual.astype(np.float32)
+            g = (np.bincount(pb, weights=bf16(d32).astype(np.float64)[pr],
+                             minlength=nb)
+                 + np.bincount(sb, weights=d32.astype(np.float64)[sr],
+                               minlength=nb))
+            c = np.sqrt(cg * cg + g * g)
+            z = z + g - (c - cg) / ALPHA * w
+            cg = c
+            v = -z
+            w = (np.sign(v) * np.maximum(np.abs(v) - LAMBDA[0], 0)
+                 / ((BETA + c) / ALPHA + LAMBDA[1]))
+        ms, ys, accs, vobjv = [], [], [], 0.0
+        for blk in blocks:
+            lab = blk[4]
+            real = lab != 255
+            m = oracle_margins(w, blk, rows)[real]
+            y = (lab[real] == 1).astype(np.float64)
+            vobjv += float(np.logaddexp(0, -(2 * y - 1) * m).sum())
+            accs.append(np.mean((m > 0) == (y > 0.5)))
+            ms.append(m)
+            ys.append(y)
+        log.append({"train_objv": objv / n, "val_objv": vobjv / n,
+                    "val_auc": auc_np(np.concatenate(ys),
+                                      np.concatenate(ms)),
+                    "val_acc": float(np.mean(accs))})
+    return w, log
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -137,7 +264,7 @@ def main() -> int:
     from wormhole_tpu_torch.ops import _ext
     from wormhole_tpu_torch.ops import tilemm as tt
     from wormhole_tpu_torch.ops.metrics import auc_np
-    from wormhole_tpu_torch.utils.config import Config
+    from wormhole_tpu_torch.utils.config import Config, load_config
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -172,7 +299,7 @@ def main() -> int:
     w_np[rng.random(NB) < 0.3] = 0.0           # an L1-sparse FTRL model
     wd = torch.from_numpy(w_np).to(dev)
     max_err = 0.0
-    uniform_block = None
+    uniform_block = spill_block = None
     for kind in ("uniform", "spill"):
         keys = make_keys(rng, spec.block_rows)
         if kind == "spill":
@@ -201,6 +328,8 @@ def main() -> int:
               f"row (largest {tol.max().item():.3e})  bitwise repeat ok")
         if kind == "uniform":
             uniform_block = blk
+        else:
+            spill_block = blk
     print(f"phase {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -340,6 +469,398 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": lib_ms,
     }]
+
+    # -- 8. training kernels vs plain at full width ----------------------------
+    t0 = phase("training kernels vs plain at full width")
+    from wormhole_tpu_torch.learners.handles import LearnRate
+    from wormhole_tpu_torch.ops.penalty import L1L2
+    handle = FTRLHandle(penalty=L1L2(*LAMBDA), lr=LearnRate(ALPHA, BETA))
+    rows = spec.block_rows
+    labels_d = torch.from_numpy((rng.random(rows) < 0.25).astype(
+        np.float32)).to(dev)
+    mask_d = torch.ones(rows, device=dev)
+    mask_d[-4096:] = 0.0                                 # a padded tail
+    slots0 = torch.stack([wd, -10.0 * wd, wd.abs() * 3]).contiguous()
+    errs = {k: 0.0 for k in ("tile_bwd", "tile_step_grad",
+                             "tile_step_update", "loss_dual", "ftrl_push")}
+    spec8 = tt.make_spec(NB_FUSE8, SUBBLOCKS, default_cap(NNZ, NB_FUSE8))
+    require(spec8.fuse == 8 and spec8.cap == 256, f"fuse spec {spec8}")
+    cases = [("uniform", uniform_block, spec), ("spill", spill_block, spec)]
+    pw8 = torch.from_numpy(encode_tile_block(
+        make_keys(rng, spec8.block_rows), NB_FUSE8, spec8, OVF_CAP)[0]
+        .view(np.int32)).to(dev)
+    cases.append(("fuse8", {"pw": pw8}, spec8))
+    for kind, blk, sp_ in cases:
+        dual = torch.from_numpy((rng.standard_normal(sp_.block_rows) * 0.4)
+                                .astype(np.float32)).to(dev)
+        a = tt.backward_grad(blk["pw"], dual, sp_)
+        b = tt.backward_grad(blk["pw"], dual, sp_)
+        plain = tt.backward_grad_plain(blk["pw"], dual, sp_)
+        torch.cuda.synchronize()
+        tol = grad_tolerance(torch, tt, blk["pw"], sp_, dual, dual)
+        err = (a.double() - plain.double()).abs()
+        require(bool(torch.all(err <= tol)), f"tile_bwd {kind}: vs plain "
+                f"(max err {err.max().item():.3e})")
+        require(torch.equal(a, b), f"tile_bwd {kind}: two runs differ")
+        errs["tile_bwd"] = max(errs["tile_bwd"], err.max().item())
+        print(f"tile_bwd {kind} ({sp_.tiles} tiles, fuse {sp_.fuse}): max "
+              f"|kernel - plain| {err.max().item():.3e}  tolerance per "
+              f"bucket 4*k*2^-24*sum|bf16 dual| (largest "
+              f"{tol.max().item():.3e})  bitwise repeat ok")
+        del a, b, plain, tol, err
+    del cases
+    for kind, blk in (("uniform", uniform_block), ("spill", spill_block)):
+        pw = blk["pw"]
+        spill = (blk["ovf_b"], blk["ovf_r"]) if kind == "spill" else \
+            (None, None)
+        sp = (tt.spill_margin_rows(wd, *spill, spec) if kind == "spill"
+              else None)
+        for loss, exact in (("logit", True), ("hinge", False)):
+            mf, gf = tt.fused_step_grad(pw, wd, labels_d, mask_d, spec, loss,
+                                        exact, spill_margins=sp)
+            mf2, gf2 = tt.fused_step_grad(pw, wd, labels_d, mask_d, spec,
+                                          loss, exact, spill_margins=sp)
+            ms_ = tt.forward_margins(pw, wd, spec, *spill)
+            dk = tt.loss_dual(ms_, labels_d, mask_d, loss, exact)
+            gs = tt.backward_grad(pw, dk, spec)
+            mp, gp = tt.fused_step_grad_plain(pw, wd, labels_d, mask_d, spec,
+                                              loss, exact, sp)
+            dp = tt.loss_dual_plain(mp, labels_d, mask_d, loss, exact)
+            torch.cuda.synchronize()
+            require(torch.equal(mf, ms_) and torch.equal(gf, gs),
+                    f"tile_step_grad {kind} {loss}: fused != split")
+            require(torch.equal(mf, mf2) and torch.equal(gf, gf2),
+                    f"tile_step_grad {kind} {loss}: two runs differ")
+            mtol = row_tolerance(torch, tt, pw, wd, spec)
+            merr = (mf.double() - mp.double()).abs()
+            gtol = grad_tolerance(torch, tt, pw, spec, dk, dp)
+            gerr = (gf.double() - gp.double()).abs()
+            require(bool(torch.all(merr <= mtol)) and bool(
+                torch.all(gerr <= gtol)), f"tile_step_grad {kind} {loss}: "
+                f"vs plain (margins {merr.max().item():.3e}, grad "
+                f"{gerr.max().item():.3e})")
+            derr = (dk.double() - dp.double()).abs()
+            dk_p = tt.loss_dual_plain(ms_, labels_d, mask_d, loss, exact)
+            derr_same = (dk.double() - dk_p.double()).abs()
+            require(bool(torch.all(derr_same <= 2.0 ** -20 * dk_p.double()
+                                   .abs() + 1e-30)),
+                    f"loss_dual {loss}: vs plain on the same margins")
+            errs["tile_step_grad"] = max(errs["tile_step_grad"],
+                                         merr.max().item(),
+                                         gerr.max().item())
+            errs["loss_dual"] = max(errs["loss_dual"],
+                                    derr_same.max().item())
+            print(f"tile_step_grad {kind} {loss} exact_dense={exact}: "
+                  f"fused = split bitwise, bitwise repeat ok; vs plain "
+                  f"margins {merr.max().item():.3e}, grad "
+                  f"{gerr.max().item():.3e} (dual {derr.max().item():.3e}; "
+                  f"loss_dual vs plain on the same margins "
+                  f"{derr_same.max().item():.3e}, tolerance 2^-20 relative)")
+    pw = uniform_block["pw"]
+    runs = []
+    for _ in range(2):
+        s_ = slots0.clone()
+        m_, wd2 = tt.fused_step_update(pw, s_, labels_d, mask_d, spec,
+                                       "logit", handle)
+        runs.append((m_, s_, wd2))
+    ss = slots0.clone()
+    ms_ = tt.forward_margins(pw, ss[0], spec)
+    dk = tt.loss_dual(ms_, labels_d, mask_d, "logit", True)
+    gk = tt.backward_grad(pw, dk, spec)
+    wds = tt.ftrl_push(ss, gk, handle)
+    sp_ = slots0.clone()
+    mp, _ = tt.fused_step_update_plain(pw, sp_, labels_d, mask_d, spec,
+                                       "logit", handle)
+    pp = slots0.clone()
+    tt.ftrl_push_plain(pp, gk, handle)
+    torch.cuda.synchronize()
+    for m_, s_, wd2 in runs:
+        require(torch.equal(m_, ms_) and torch.equal(s_, ss)
+                and torch.equal(wd2, wds),
+                "tile_step_update: fused != split (or runs differ)")
+    dp = tt.loss_dual_plain(mp, labels_d, mask_d, "logit", True)
+    gtol = grad_tolerance(torch, tt, pw, spec, dk, dp)
+    uerr = (ss.double() - sp_.double()).abs()
+    utol = slot_tolerance(torch, slots0, gk, sp_, gtol)
+    require(bool(torch.all(uerr <= utol)),
+            f"tile_step_update vs plain (max err {uerr.max().item():.3e})")
+    perr = (ss.double() - pp.double()).abs()
+    require(bool(torch.all(perr <= slot_tolerance(torch, slots0, gk, pp,
+                                                  0.0))),
+            f"ftrl_push vs plain (max err {perr.max().item():.3e})")
+    errs["tile_step_update"] = uerr.max().item()
+    errs["ftrl_push"] = perr.max().item()
+    print(f"tile_step_update: fused = split bitwise (margins, w/z/cg, "
+          f"sum dw^2 {wds.item():.6g}), bitwise repeat ok; slots vs plain "
+          f"{uerr.max().item():.3e}; ftrl_push vs plain on the same "
+          f"gradient {perr.max().item():.3e} (per-slot f32 bound)")
+    del runs, ss, sp_, pp, uerr, utol, perr, gtol
+    print(f"phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. training through async_sgd.main ------------------------------------
+    counted = [tt.forward_margins, tt.backward_grad, tt.fused_step_grad,
+               tt.fused_step_update, tt.loss_dual, tt.ftrl_push]
+    names = ["tile_fwd", "tile_bwd", "tile_step_grad", "tile_step_update",
+             "loss_dual", "ftrl_push"]
+
+    def counts():
+        return dict(zip(names, (f.launches for f in counted)))
+
+    train_launches = {n: 0 for n in names}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        t0 = phase("write a spill file and an ovf_cap=0 file")
+        files = {}
+        # keys from a 2^20-key vocabulary, so a key recurs across rows
+        # (about 12 times a file) and training has something to learn
+        vocab = rng.integers(0, 0xFFFFFFFF, size=VOCAB, dtype=np.uint32)
+        for kind, oc in (("spill", OVF_CAP), ("ovf0", 0)):
+            keys = vocab[rng.integers(0, VOCAB, size=(n_rows, NNZ))]
+            keys[rng.random((n_rows, NNZ)) < 0.1] = 0xFFFFFFFF
+            if oc:
+                keys[spec.block_rows:spec.block_rows + HOT_ROWS, 0] = \
+                    np.uint32(0xC0FFEE)
+            rr, cc = np.nonzero(keys != 0xFFFFFFFF)
+            pair_b = fold_keys32(keys[rr, cc], NB)
+            true_m = np.bincount(rr, weights=w_np[pair_b].astype(np.float64),
+                                 minlength=n_rows)
+            lab = (rng.random(n_rows) < 1 / (1 + np.exp(-true_m))
+                   ).astype(np.uint8)
+            files[kind] = os.path.join(work, f"{kind}.crec2")
+            with CRec2Writer(files[kind], nnz=NNZ, nb=NB, subblocks=SUBBLOCKS,
+                             ovf_cap=oc) as wr:
+                wr.append(keys, lab)
+        oblocks = {k: oracle_blocks(torch, tt, f, spec, dev)
+                   for k, f in files.items()}
+        require(sum(len(b[2]) for b in oblocks["spill"]) > 0,
+                "the spill file has no spill pairs")
+        print(f"{n_rows} rows x 2 files of {BLOCKS} blocks; spill pairs "
+              f"{sum(len(b[2]) for b in oblocks['spill'])}; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("train through async_sgd.main and AsyncSGD.run")
+        base = ["data_format=crec2", f"num_buckets={NB}",
+                f"max_data_pass={PASSES}", f"lambda={LAMBDA[0]} {LAMBDA[1]}",
+                "disp_itv=1e12"]
+        expect = {  # launches per run: one per block and pass, per kernel
+            ("spill", "fused"): {"tile_step_grad": 8, "loss_dual": 8,
+                                 "ftrl_push": 8, "tile_fwd": 8},
+            ("ovf0", "fused"): {"tile_step_update": 8, "tile_fwd": 8},
+            ("spill", "split"): {"tile_fwd": 16, "tile_bwd": 8,
+                                 "loss_dual": 8, "ftrl_push": 8},
+            ("ovf0", "split"): {"tile_fwd": 16, "tile_bwd": 8,
+                                "loss_dual": 8, "ftrl_push": 8},
+        }
+        resolved = {("spill", "fused"): "fused",
+                    ("ovf0", "fused"): "fused_update"}
+        train_rows = PASSES * n_rows
+        for f in counted:
+            f.launches = 0
+        # the CLI a user calls: auto resolves the fused step on the card
+        pred = os.path.join(work, "pred.txt")
+        t1 = time.perf_counter()
+        rc = async_sgd.main(base + [
+            f"train_data={files['spill']}", f"val_data={files['spill']}",
+            f"test_data={files['spill']}", f"pred_out={pred}",
+            f"model_out={os.path.join(work, 'trained')}"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = counts()
+        require(rc == 0, f"main returned {rc}")
+        want = dict(expect[("spill", "fused")])
+        want["tile_fwd"] += BLOCKS                     # the test predict
+        require(got == {n: want.get(n, 0) for n in names},
+                f"main launches {got}, want {want}")
+        p = np.loadtxt(pred)
+        require(p.shape == (n_rows,) and bool(np.all(np.isfinite(p))),
+                "main's predictions")
+        print(f"main (auto, spill file): {got}  {dt:.1f} s, "
+              f"{train_rows / dt:.0f} train examples/s over the whole run "
+              f"(validation, predict and model_out included)")
+        train_launches = dict(got)
+        trained = {}
+        for (kind, kernel) in expect:
+            for f in counted:
+                f.launches = 0
+            cfg = load_config(None, base + [
+                f"train_data={files[kind]}", f"val_data={files[kind]}",
+                f"tile_step_kernel={kernel}"])
+            app = async_sgd.AsyncSGD(cfg)
+            t1 = time.perf_counter()
+            app.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            got = counts()
+            for n in names:
+                train_launches[n] += got[n]
+            require(got == {n: expect[(kind, kernel)].get(n, 0)
+                            for n in names},
+                    f"{kind}/{kernel} launches {got}")
+            info = read_header2(files[kind])
+            rec = app.store._tile_kernel[(info, "train")]
+            require(rec[0] == resolved.get((kind, kernel), "split"),
+                    f"{kind}/{kernel} resolved {rec}")
+            trained[(kind, kernel)] = (app.store.slots, app.pass_log)
+            print(f"{kind}/{kernel}: resolved {rec[0]!r} ({rec[2]}); "
+                  f"launches {got}; {dt:.1f} s, {train_rows / dt:.0f} "
+                  f"train examples/s over the run (validation included)")
+            del app
+        for kind in ("spill", "ovf0"):
+            require(torch.equal(trained[(kind, "fused")][0],
+                                trained[(kind, "split")][0]),
+                    f"{kind}: fused and split trained slots differ")
+        print("fused and split trained slots bitwise equal on both files")
+
+        t0 = phase("training vs float64 numpy oracle")
+        for kind in ("spill", "ovf0"):
+            w_or, log_or = oracle_train(oblocks[kind], NB, spec.block_rows,
+                                        auc_np)
+            slots, log = trained[(kind, "fused")]
+            for p_, (a, b) in enumerate(zip(log, log_or)):
+                for key in ("train_objv", "val_objv"):
+                    require(abs(a[key] - b[key]) <= 1e-4 * abs(b[key]),
+                            f"{kind} pass {p_} {key} {a[key]} vs {b[key]}")
+                for key in ("val_auc", "val_acc"):
+                    require(abs(a[key] - b[key]) <= 1e-4,
+                            f"{kind} pass {p_} {key} {a[key]} vs {b[key]}")
+                print(f"{kind} pass {p_}: " + "  ".join(
+                    f"{k} {a[k]:.6f} (oracle {b[k]:.6f})" for k in b))
+            # The per-bucket bound. The kernels run f32 and the oracle
+            # float64, so most buckets agree to f32 rounding over 8 steps:
+            # 1e-5·(1 + |w|). Where a row's f32 dual lies within an f32
+            # rounding of a bf16 rounding boundary, the two round it to
+            # neighbouring bf16 values, one bf16 step (≤ 2^-8, |dual| ≤ 1)
+            # apart. That moves each of the row's ~35 buckets' gradient by
+            # that step and its w by at most α/β·2^-8·(1 + |w|/α) ≈ 4e-4
+            # (w' ≤ α/β·|Δz'|). So every bucket is held within 2e-3 (a few
+            # such flips), and at least 99% of buckets to the f32 bound.
+            w_k = slots[0].double().cpu().numpy()
+            werr = np.abs(w_k - w_or)
+            tight = werr <= 1e-5 * (1 + np.abs(w_or))
+            print(f"{kind}: final w vs oracle: max {werr.max():.3e}, "
+                  f"99.9th pct {np.quantile(werr, 0.999):.3e}, "
+                  f"{tight.mean() * 100:.4f}% within 1e-5*(1+|w|), "
+                  f"nnz {np.count_nonzero(w_k)} (oracle "
+                  f"{np.count_nonzero(w_or)})")
+            require(werr.max() <= 2e-3 and tight.mean() >= 0.99,
+                    f"{kind}: final weights off the oracle")
+        print(f"phase {time.perf_counter() - t0:.1f} s")
+        del trained, oblocks
+
+    # -- 10. timing of the training kernels ------------------------------------
+    t0 = phase("training kernels per block (CUDA events, median of 7 x 10)")
+
+    def transposed_csr(pw_, sp_):
+        """The block's pairs as a (nb, rows) CSR matrix of ones: the
+        one-call yardstick torch.sparse.mm(csr, bf16 dual) of tile_bwd."""
+        bucket, row, valid = tt.decode_pairs(pw_, sp_)
+        order = torch.argsort(bucket[valid], stable=True)
+        b_v, r_v = bucket[valid][order], row[valid][order]
+        crow = torch.zeros(sp_.nb + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(b_v, minlength=sp_.nb), 0)
+        return torch.sparse_csr_tensor(crow, r_v, torch.ones_like(
+            r_v, dtype=torch.float32), size=(sp_.nb, sp_.block_rows)), \
+            int(valid.sum().item())
+
+    pw = uniform_block["pw"]
+    dual = torch.from_numpy((rng.standard_normal(rows) * 0.4).astype(
+        np.float32)).to(dev)
+    csr_t, n_pairs = transposed_csr(pw, spec)
+    dcol = dual.to(torch.bfloat16).float().unsqueeze(1)
+    lib_g = torch.sparse.mm(csr_t, dcol).squeeze(1)
+    require(bool(torch.all((lib_g - tt.backward_grad(pw, dual, spec)).abs()
+                           <= grad_tolerance(torch, tt, pw, spec, dual,
+                                             dual))),
+            "sparse.mm yardstick disagrees with tile_bwd")
+    del lib_g
+    # kernel #3's function: tile_bwd on the fuse=8 spec (no main-path file
+    # has one, so it is timed here and not listed with launches)
+    dual8 = torch.from_numpy((rng.standard_normal(spec8.block_rows) * 0.4)
+                             .astype(np.float32)).to(dev)
+    csr8, n8 = transposed_csr(pw8, spec8)
+    d8col = dual8.to(torch.bfloat16).float().unsqueeze(1)
+    b8 = pw8.numel() * 4 + spec8.block_rows * 4 + spec8.nb * 4
+    ms8 = time_ms(torch, lambda: tt.backward_grad(pw8, dual8, spec8))
+    p8 = time_ms(torch, lambda: tt.backward_grad_plain(pw8, dual8, spec8))
+    l8 = time_ms(torch, lambda: torch.sparse.mm(csr8, d8col))
+    print(f"tile_bwd on the fuse=8 spec (nb 2^25, cap 256): {ms8:.4f} ms  "
+          f"plain {p8:.4f} ms  sparse.mm of the transposed CSR {l8:.4f} ms"
+          f"  bound {max(b8 / PEAK_BYTES_S, n8 / PEAK_F32_S) * 1e3:.4f} ms "
+          f"({b8 / 1e6:.2f} MB)  card {smi}")
+    del csr8, d8col, dual8, pw8
+    sl = slots0.clone()
+    g_t = tt.backward_grad(pw, dual, spec)
+    m_t = tt.forward_margins(pw, wd, spec)
+    b_rows, b_nb = rows * 4, NB * 4
+    pw_b = pw.numel() * 4
+    t = {}
+    t["tile_bwd"] = (lambda: tt.backward_grad(pw, dual, spec),
+                     lambda: tt.backward_grad_plain(pw, dual, spec),
+                     lambda: torch.sparse.mm(csr_t, dcol),
+                     pw_b + b_rows + b_nb, n_pairs)
+    t["tile_step_grad"] = (
+        lambda: tt.fused_step_grad(pw, wd, labels_d, mask_d, spec, "logit",
+                                   True),
+        lambda: tt.fused_step_grad_plain(pw, wd, labels_d, mask_d, spec,
+                                         "logit", True),
+        None, pw_b + b_nb + 3 * b_rows + b_nb, 2 * n_pairs)
+    t["tile_step_update"] = (
+        lambda: tt.fused_step_update(pw, sl, labels_d, mask_d, spec, "logit",
+                                     handle),
+        lambda: tt.fused_step_update_plain(pw, sl, labels_d, mask_d, spec,
+                                           "logit", handle),
+        None, pw_b + 6 * b_nb + 3 * b_rows, 2 * n_pairs + 20 * NB)
+    t["loss_dual"] = (
+        lambda: tt.loss_dual(m_t, labels_d, mask_d, "logit", True),
+        lambda: tt.loss_dual_plain(m_t, labels_d, mask_d, "logit", True),
+        None, 4 * b_rows, 8 * rows)
+    t["ftrl_push"] = (lambda: tt.ftrl_push(sl, g_t, handle),
+                      lambda: tt.ftrl_push_plain(sl, g_t, handle),
+                      None, 7 * b_nb, 20 * NB)
+    chains = {
+        "tile_step_grad": lambda: tt.backward_grad(
+            pw, tt.loss_dual(tt.forward_margins(pw, wd, spec), labels_d,
+                             mask_d, "logit", True), spec),
+        "tile_step_update": lambda: tt.ftrl_push(sl, tt.backward_grad(
+            pw, tt.loss_dual(tt.forward_margins(pw, sl[0], spec), labels_d,
+                             mask_d, "logit", True), spec), handle),
+    }
+    sources = {"tile_bwd": "tile_bwd.cu", "tile_step_grad": "tile_step.cu",
+               "tile_step_update": "tile_step.cu", "loss_dual": "tile_step.cu",
+               "ftrl_push": "tile_step.cu"}
+    replaces = {
+        "tile_bwd": "wormhole_tpu/ops/tilemm.py:527",
+        "tile_step_grad": "wormhole_tpu/ops/tilemm.py:1348",
+        "tile_step_update": "wormhole_tpu/ops/tilemm.py:1399",
+        # the split path's elementwise math, which XLA fused in JAX
+        "loss_dual": "wormhole_tpu/ops/loss.py:44",
+        "ftrl_push": "wormhole_tpu/learners/handles.py:122",
+    }
+    for name, (ker, plain, lib, nbytes, nops) in t.items():
+        k_ms = time_ms(torch, ker)
+        p_ms = time_ms(torch, plain)
+        l_ms = time_ms(torch, lib) if lib is not None else None
+        k_ms2 = time_ms(torch, ker)
+        b_ms = max(nbytes / PEAK_BYTES_S, nops / PEAK_F32_S) * 1e3
+        line = (f"{name} {k_ms:.4f} ms (again {k_ms2:.4f})  plain "
+                f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({nbytes / 1e6:.2f} MB "
+                f"at {PEAK_BYTES_S / 1e12:.2f} TB/s)")
+        if l_ms is not None:
+            line += f"  sparse.mm of the transposed CSR {l_ms:.4f} ms"
+        if name in chains:
+            line += f"  split chain {time_ms(torch, chains[name]):.4f} ms"
+        print(line + f"  card {smi}")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"wormhole_tpu_torch/ops/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": train_launches[name],
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": l_ms})
+    kernels[0]["launches"] += train_launches["tile_fwd"]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} never launched on the "
+                "main path")
+    print(f"phase {time.perf_counter() - t0:.1f} s")
+
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

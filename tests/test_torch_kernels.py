@@ -7,7 +7,11 @@ no JAX; ``tests/conftest.py`` imports JAX, so run it there as
 
 Tests marked ``cuda`` skip on a host without a CUDA device. The margin
 tolerance is the one test_torch_tilemm.py states: 4·nnz·2⁻²⁴·Σ_p|w_p| per
-row, since kernel and plain version differ only in f32 summation order.
+row, since kernel and plain version differ only in f32 summation order. The
+gradient's is the same bound over each bucket's bf16 duals. The FTRL slots
+after a step are held to the plain version within 1e-5·(1 + |x|): they
+start from the same gradient up to that bound, and the update adds a few
+f32 roundings (the CPU tests derive the full per-slot bound).
 """
 
 import os
@@ -18,8 +22,10 @@ import torch
 
 from wormhole_tpu_torch.data.crec import CRec2Writer
 from wormhole_tpu_torch.learners.async_sgd import AsyncSGD, main
+from wormhole_tpu_torch.learners.handles import FTRLHandle, LearnRate
 from wormhole_tpu_torch.ops import _ext
 from wormhole_tpu_torch.ops import tilemm as tt
+from wormhole_tpu_torch.ops.penalty import L1L2
 from wormhole_tpu_torch.utils.config import Config
 
 SPEC = tt.TileSpec(nb=2 * tt.TILE, subblocks=2, cap=1280, group=2,
@@ -56,11 +62,13 @@ def as_i32(a, device="cpu"):
 def test_kernel_sources_and_build_paths():
     """One library per source, named after a hash of its source and
     flags; nothing is built when the module is imported."""
-    assert _ext.sources() == ["tile_fwd"]
-    p = _ext._lib_path("tile_fwd")
-    assert p.parent == _ext.BUILD_DIR and p.name.startswith("tile_fwd-")
-    assert p == _ext._lib_path("tile_fwd")
+    assert _ext.sources() == ["tile_bwd", "tile_fwd", "tile_step"]
+    for name in _ext.sources():
+        p = _ext._lib_path(name)
+        assert p.parent == _ext.BUILD_DIR and p.name.startswith(name + "-")
+        assert p == _ext._lib_path(name)
     assert "-gencode=arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS
+    assert "--fmad=false" in _ext.NVCC_FLAGS
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -81,6 +89,50 @@ def test_plain_path_is_taken_only_for_cpu_tensors():
     want = tt.forward_margins_plain(as_i32(pw), torch.from_numpy(w), SPEC)
     assert torch.equal(got, want)
     assert tt.forward_margins.launches == before
+
+
+LAUNCHED = (tt.forward_margins, tt.backward_grad, tt.fused_step_grad,
+            tt.fused_step_update, tt.loss_dual, tt.ftrl_push)
+HANDLE = FTRLHandle(penalty=L1L2(0.05, 0.01), lr=LearnRate(0.1, 1.0))
+
+
+def launch_counts():
+    return [f.launches for f in LAUNCHED]
+
+
+def step_operands(seed, device="cpu", skew=False):
+    buckets, rows, pw, ob, orow, _, w = operands(seed, skew)
+    rng = np.random.default_rng(seed + 100)
+    labels = (rng.random(SPEC.block_rows) < 0.4).astype(np.float32)
+    mask = np.ones(SPEC.block_rows, np.float32)
+    mask[-50:] = 0
+    slots = (rng.standard_normal((3, SPEC.nb)) * 0.1).astype(np.float32)
+    slots[2] = np.abs(slots[2])
+    t = lambda a: torch.from_numpy(a).to(device)
+    return dict(buckets=buckets, rows=rows, pw=as_i32(pw, device),
+                ob=as_i32(ob, device), orow=as_i32(orow, device), w=t(w),
+                labels=t(labels), mask=t(mask), slots=t(slots))
+
+
+def test_training_wrappers_take_the_plain_path_only_on_cpu():
+    """On CPU tensors every training wrapper runs its plain version and
+    counts no launch; the fused steps equal their plain compositions."""
+    o = step_operands(3)
+    before = launch_counts()
+    mg, g = tt.fused_step_grad(o["pw"], o["w"], o["labels"], o["mask"], SPEC,
+                               "logit", True)
+    pm, pg = tt.fused_step_grad_plain(o["pw"], o["w"], o["labels"],
+                                      o["mask"], SPEC, "logit", True)
+    assert torch.equal(mg, pm) and torch.equal(g, pg)
+    assert torch.equal(tt.backward_grad(o["pw"], o["labels"], SPEC),
+                       tt.backward_grad_plain(o["pw"], o["labels"], SPEC))
+    a, b = o["slots"].clone(), o["slots"].clone()
+    ma, wa = tt.fused_step_update(o["pw"], a, o["labels"], o["mask"], SPEC,
+                                  "logit", HANDLE)
+    mb, wb = tt.fused_step_update_plain(o["pw"], b, o["labels"], o["mask"],
+                                        SPEC, "logit", HANDLE)
+    assert torch.equal(ma, mb) and torch.equal(a, b) and torch.equal(wa, wb)
+    assert launch_counts() == before
 
 
 # -- on the GPU host --------------------------------------------------------
@@ -166,3 +218,150 @@ def test_predict_and_eval_on_cuda_match_cpu(cuda, tmp_path):
     assert pg.num_ex == pc.num_ex == n
     assert abs(pg.objv - pc.objv) <= 1e-5 * abs(pc.objv)
     assert abs(ag - ac) <= 1e-5
+
+
+def grad_tol(buckets, rows, dual):
+    """Per bucket 4·k·2⁻²⁴·Σ|bf16 dual| (k its pair count)."""
+    db = torch.from_numpy(dual).bfloat16().double().numpy()
+    mag = np.bincount(buckets, weights=np.abs(db)[rows], minlength=SPEC.nb)
+    cnt = np.bincount(buckets, minlength=SPEC.nb)
+    return 4 * np.maximum(cnt, 1) * 2.0 ** -24 * mag + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [False, True])
+def test_tile_bwd_matches_plain_and_is_bitwise_reproducible(cuda, skew):
+    o = step_operands(40 + skew, cuda, skew)
+    dual = (np.random.default_rng(41).standard_normal(SPEC.block_rows)
+            * 0.5).astype(np.float32)
+    d = torch.from_numpy(dual).to(cuda)
+    before = tt.backward_grad.launches
+    a = tt.backward_grad(o["pw"], d, SPEC)
+    b = tt.backward_grad(o["pw"], d, SPEC)
+    torch.cuda.synchronize()
+    assert tt.backward_grad.launches == before + 2
+    assert torch.equal(a, b)
+    plain = tt.backward_grad_plain(o["pw"], d, SPEC).cpu().numpy()
+    bucket, row, valid = tt.decode_pairs(o["pw"].cpu(), SPEC)
+    tol = grad_tol(bucket[valid].numpy(), row[valid].numpy(), dual)
+    assert np.all(np.abs(a.cpu().numpy() - plain) <= tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["logit", "hinge", "square_hinge",
+                                  "square"])
+@pytest.mark.parametrize("skew", [False, True])
+def test_fused_step_grad_equals_split_bitwise_on_cuda(cuda, loss, skew):
+    """The fused step kernel equals the split chain (tile_fwd → loss_dual
+    → tile_bwd) bit for bit, repeats bitwise, and agrees with its plain
+    version within the margin bound."""
+    o = step_operands(50 + skew, cuda, skew)
+    exact = loss in ("logit", "square_hinge")
+    sp = (tt.spill_margin_rows(o["w"], o["ob"], o["orow"], SPEC) if skew
+          else None)
+    args = (o["pw"], o["w"], o["labels"], o["mask"], SPEC, loss, exact)
+    before = launch_counts()
+    mf, gf = tt.fused_step_grad(*args, spill_margins=sp)
+    mf2, gf2 = tt.fused_step_grad(*args, spill_margins=sp)
+    spill = (o["ob"], o["orow"]) if skew else (None, None)
+    ms = tt.forward_margins(o["pw"], o["w"], SPEC, *spill)
+    gs = tt.backward_grad(o["pw"], tt.loss_dual(ms, o["labels"], o["mask"],
+                                                loss, exact), SPEC)
+    torch.cuda.synchronize()
+    assert np.subtract(launch_counts(), before).tolist() == [1, 1, 2, 0, 1,
+                                                             0]
+    assert torch.equal(mf, ms) and torch.equal(gf, gs)
+    assert torch.equal(mf, mf2) and torch.equal(gf, gf2)
+    mp, _ = tt.fused_step_grad_plain(*args, spill_margins=sp)
+    err = np.abs(mf.cpu().numpy() - mp.cpu().numpy())
+    assert np.all(err <= row_tol(o["buckets"], o["rows"],
+                                 o["w"].cpu().numpy()))
+
+
+@pytest.mark.cuda
+def test_fused_step_update_equals_split_bitwise_on_cuda(cuda):
+    """The in-place FTRL step equals tile_fwd → loss_dual → tile_bwd →
+    ftrl_push bit for bit (margins, all three planes, Σ(Δw)²), repeats
+    bitwise, and agrees with its plain version."""
+    o = step_operands(54, cuda)
+    runs = []
+    for _ in range(2):
+        s = o["slots"].clone()
+        m, wd = tt.fused_step_update(o["pw"], s, o["labels"], o["mask"],
+                                     SPEC, "logit", HANDLE)
+        runs.append((m, s, wd))
+    s = o["slots"].clone()
+    ms = tt.forward_margins(o["pw"], s[0], SPEC)
+    d = tt.loss_dual(ms, o["labels"], o["mask"], "logit", True)
+    wd = tt.ftrl_push(s, tt.backward_grad(o["pw"], d, SPEC), HANDLE)
+    torch.cuda.synchronize()
+    for m_, s_, wd_ in runs:
+        assert torch.equal(m_, ms) and torch.equal(s_, s)
+        assert torch.equal(wd_, wd)
+    p = o["slots"].clone()
+    tt.fused_step_update_plain(o["pw"], p, o["labels"], o["mask"], SPEC,
+                               "logit", HANDLE)
+    err = (s - p).abs().cpu().numpy()
+    assert np.all(err <= 1e-5 * (1 + np.abs(p.cpu().numpy())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dual_cpu", "dual_shape", "labels_dtype",
+                                 "slots_layout", "spill_shape"])
+def test_training_kernels_reject_bad_cuda_operands(cuda, bad):
+    o = step_operands(58, cuda)
+    before = launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "dual_cpu":
+            tt.backward_grad(o["pw"], o["labels"].cpu(), SPEC)
+        elif bad == "dual_shape":
+            tt.backward_grad(o["pw"], o["labels"][:-1], SPEC)
+        elif bad == "labels_dtype":
+            tt.fused_step_grad(o["pw"], o["w"], o["labels"].double(),
+                               o["mask"], SPEC, "logit", True)
+        elif bad == "slots_layout":
+            tt.fused_step_update(o["pw"], o["slots"].T.contiguous().T,
+                                 o["labels"], o["mask"], SPEC, "logit",
+                                 HANDLE)
+        else:
+            tt.fused_step_grad(o["pw"], o["w"], o["labels"], o["mask"], SPEC,
+                               "logit", True, spill_margins=o["w"])
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "split"])
+def test_training_on_cuda_matches_cpu(cuda, tmp_path, kernel):
+    """Two training passes through the app on the GPU (one step launch per
+    block and pass on the resolved kernel) against the CPU run; fused and
+    split trained slots equal bitwise on the card."""
+    rng = np.random.default_rng(5)
+    n = 3 * 8192 + 500
+    keys = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint32)
+    keys[rng.random(keys.shape) < 0.1] = 0xFFFFFFFF
+    path = str(tmp_path / "t.crec2")
+    with CRec2Writer(path, nnz=8, nb=SPEC.nb, subblocks=1, cap=33408,
+                     ovf_cap=0) as wr:
+        wr.append(keys, (rng.random(n) < 0.4).astype(np.uint8))
+    cfg = dict(data_format="crec2", num_buckets=SPEC.nb, train_data=path,
+               max_data_pass=2, tile_step_kernel=kernel, disp_itv=1e12)
+    cpu = AsyncSGD(Config(**cfg), device="cpu")
+    cpu.run()
+    gpu = {}
+    for k in ("fused", "split"):
+        before = launch_counts()
+        app = AsyncSGD(Config(**dict(cfg, tile_step_kernel=k)), device=cuda)
+        app.run()
+        torch.cuda.synchronize()
+        gpu[k] = (app, np.subtract(launch_counts(), before).tolist())
+    assert gpu["fused"][1] == [0, 0, 0, 8, 0, 0]
+    assert gpu["split"][1] == [8, 8, 0, 0, 8, 8]
+    assert torch.equal(gpu["fused"][0].store.slots, gpu["split"][0].store.slots)
+    app = gpu[kernel][0]
+    assert app.progress.num_ex == cpu.progress.num_ex == 2 * n
+    assert abs(app.progress.objv - cpu.progress.objv) <= \
+        1e-4 * cpu.progress.objv
+    err = (app.store.slots.cpu() - cpu.store.slots).abs()
+    assert float(err.max()) <= 1e-2
+    assert float((err <= 1e-5 * (1 + cpu.store.slots.abs())).float()
+                 .mean()) >= 0.99

@@ -250,21 +250,32 @@ def test_run_eval_matches_jax(tmp_path):
 
 
 def test_training_and_other_formats_raise(tmp_path):
+    """What the port does not run yet raises NotImplementedError naming
+    ROADMAP.md, before any work: other data formats, the other handles,
+    the multihost/staleness path, checkpoint resume and device-resident
+    replay. A file written for another bucket count is a ValueError."""
     path = make_file(tmp_path / "t.crec2", seed=11, spill=False)
-    _, tcfg = _cfg(train_data=path, max_data_pass=1)
-    app = AsyncSGD(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        app.run()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        app.process(path, 0, 1, "train")
-    app.cfg.data_format = "libsvm"
-    with pytest.raises(NotImplementedError, match="crec2"):
-        app.process(path, 0, 1, "val")
+    for kw, what in ((dict(data_format="libsvm"), "crec2"),
+                     (dict(staleness_tau=0), "staleness_tau"),
+                     (dict(checkpoint_dir=str(tmp_path / "ck")),
+                      "checkpoint_dir"),
+                     (dict(cache_device=True), "cache_device")):
+        _, tcfg = _cfg(train_data=path, max_data_pass=1, **kw)
+        app = AsyncSGD(tcfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+            app.run()
+        assert what in str(e.value)
+        with pytest.raises(NotImplementedError, match=what):
+            app.process(path, 0, 1, "train")
+    assert not (tmp_path / "ck").exists()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         th.create_handle("adagrad")
     _, bad = _cfg(num_buckets=4 * TILE)
     with pytest.raises(ValueError, match="num_buckets"):
         AsyncSGD(bad, device="cpu")._run_eval(path)
+    _, bad = _cfg(num_buckets=4 * TILE, train_data=path, max_data_pass=1)
+    with pytest.raises(ValueError, match="num_buckets"):
+        AsyncSGD(bad, device="cpu").run()
 
 
 def test_bf16_param_table_serves_the_same_kernel_margins(tmp_path):

@@ -1,24 +1,31 @@
-"""Online sharded-SGD app — the flagship learner, crec2 predict/eval slice.
+"""Online sharded-SGD app — the flagship learner, crec2 on one device.
 
-The counterpart of ``wormhole_tpu/learners/async_sgd.py``. This slice serves
-a trained FTRL model over crec2 data on one device:
+The counterpart of ``wormhole_tpu/learners/async_sgd.py``. It trains FTRL
+over crec2 data, validates, predicts and saves the model, on one device:
 
     python -m wormhole_tpu_torch.learners.async_sgd data_format=crec2 \\
-        num_buckets=4194304 model_in=<model> test_data=<file.crec2> \\
-        pred_out=<out> max_data_pass=0 [device=cpu]
+        num_buckets=4194304 train_data=<f.crec2> val_data=<v.crec2> \\
+        max_data_pass=2 model_out=<model> [test_data=<t.crec2> \\
+        pred_out=<out>] [tile_step_kernel=auto|fused|split] [device=cpu]
 
-``run`` warm-starts the store from ``model_in`` (a ``save_model`` text model
-of either package), streams the ``test_data`` blocks through the tile eval
-step (``store.tile_eval_step`` → ``tilemm.forward_margins``, the
-``csrc/tile_fwd.cu`` kernel on a GPU) and writes one σ(margin) per real row
-to ``pred_out``; ``_run_eval`` returns objv, pooled AUC and accuracy over
-the same kind of blocks. The device is ``cuda`` unless ``device=cpu`` is
-given; the token is the port's own and never enters ``Config``. A training
-pass raises ``NotImplementedError``: it comes with the next slice.
+``run`` warm-starts from ``model_in`` (a ``save_model`` text model of either
+package), runs ``max_data_pass`` training passes over ``train_data`` — each
+block through ``store.tile_train_step``, whose metrics accumulate on the
+device and come home once per window — with a validation pass over
+``val_data`` after each, then predicts ``test_data`` (one σ(margin) per real
+row to ``pred_out``) and saves ``model_out``. On a GPU the steps run the
+hand-written kernels in ``ops/csrc`` (``tile_step_kernel=auto`` resolves to
+the fused step there). The device is ``cuda`` unless ``device=cpu`` is given;
+the token is the port's own and never enters ``Config``. Not ported yet, and
+raising ``NotImplementedError`` that names ROADMAP.md: other data formats,
+the multihost/staleness path (``staleness_tau >= 0``), ``checkpoint_dir``
+and ``cache_device``.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import List, Optional
 
 import numpy as np
@@ -36,19 +43,26 @@ from wormhole_tpu_torch.sched.workload_pool import (TEST, TRAIN, VAL,
                                                     WorkloadPool)
 from wormhole_tpu_torch.utils.config import Config, Penalty, load_config
 from wormhole_tpu_torch.utils.logging import get_logger
-from wormhole_tpu_torch.utils.progress import Progress
+from wormhole_tpu_torch.utils.progress import Progress, TimeReporter
 
 log = get_logger("async_sgd")
 
-_NEXT_SLICE = ("training is not ported to the PyTorch package yet: it comes "
-               "with the next slice (ROADMAP.md, the crec2 FTRL train step); "
-               "run with max_data_pass=0 to predict or evaluate")
+
+class DivergedError(RuntimeError):
+    pass
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (see ROADMAP.md "
+        "for the slice that brings it)")
 
 
 class AsyncSGD:
     """Scheduler + worker in one host process, on one device."""
 
-    # blocks dispatched before their metrics and margins are fetched
+    # eval blocks dispatched before their metrics and margins are fetched;
+    # train steps dispatched ahead of a metric-accumulator fetch
     CREC_DRAIN_CHUNK = 64
 
     def __init__(self, cfg: Config, device: DeviceLike = None, store=None):
@@ -66,7 +80,10 @@ class AsyncSGD:
             store = ShardedStore(
                 StoreConfig(num_buckets=cfg.num_buckets,
                             loss=cfg.loss.value,
-                            param_dtype=cfg.param_dtype),
+                            lr_theta=cfg.lr_theta,
+                            param_dtype=cfg.param_dtype,
+                            tile_step_kernel=cfg.tile_step_kernel,
+                            tile_onehot_cache=cfg.tile_onehot_cache),
                 handle, self.device)
         elif store.cfg.num_buckets != cfg.num_buckets:
             raise ValueError(
@@ -77,6 +94,32 @@ class AsyncSGD:
             # fail at construction, not after the whole pass
             raise ValueError("test_data set but pred_out empty")
         self.progress = Progress()
+        self.start_time = time.time()
+        self._prev_num_ex = 0
+        self._nnz_w = 0          # nnz(w) at the last pass boundary
+        self.reporter = TimeReporter(self._emit_row, interval=cfg.disp_itv)
+        # deferred crec2 metric window: train steps accumulate their metric
+        # rows on the device; the host counts dispatched steps and fetches
+        # one buffer per window (an async ticket, resolved a window later)
+        self._crec_count = 0
+        self._crec_tickets: list = []
+        self._crec_hist = [np.zeros(512), np.zeros(512)]
+        # per-pass record: train objv per example, and the validation
+        # pass's objv per example, pooled AUC and accuracy
+        self.pass_log: List[dict] = []
+
+    def _check_ported(self) -> None:
+        cfg = self.cfg
+        if cfg.data_format != "crec2":
+            raise NotImplementedError(
+                f"data_format={cfg.data_format!r} is not ported yet; "
+                "the PyTorch package reads crec2 (see ROADMAP.md)")
+        if cfg.staleness_tau >= 0:
+            raise _not_ported("staleness_tau >= 0 (the multihost exchange)")
+        if cfg.checkpoint_dir:
+            raise _not_ported("checkpoint_dir (checkpoint resume)")
+        if cfg.cache_device:
+            raise _not_ported("cache_device (device-resident replay)")
 
     # -- worker data path ---------------------------------------------------
 
@@ -85,20 +128,62 @@ class AsyncSGD:
         """One workload part (AsyncSGDWorker::Process, async_sgd.h:57-127).
         ``pooled``, if given, collects ``(margin, label, weight)`` of every
         real row, for pass-level metrics and predictions."""
-        if self.cfg.data_format != "crec2":
-            raise NotImplementedError(
-                f"data_format={self.cfg.data_format!r} is not ported yet; "
-                "the PyTorch package reads crec2 (see ROADMAP.md)")
+        self._check_ported()
         return self._process_crec(file, part, nparts, kind, pooled)
+
+    # -- deferred train metrics (the on-device accumulator) ------------------
+
+    def _harvest_macc(self, local: Progress, hist: list, n_new: int,
+                      final: bool) -> None:
+        """Harvest the on-device metric accumulator into ``local``: ``n_new``
+        pending steps start an async fetch now, and the previous window's
+        ticket — which has had a window to fly home — is resolved; ``final``
+        resolves everything (part ends, flush). AUC comes from the running
+        margin histograms in ``hist``, stored as auc*count so Progress
+        merges give the pass-level number. Row layout: [objv, num_ex, acc,
+        wdelta2, pos, neg] (TableCheckpoint.MACC_LEN)."""
+        if n_new:
+            self._crec_tickets.append(
+                (self.store.fetch_metrics_async(), n_new))
+        resolved = False
+        while self._crec_tickets and (final or len(self._crec_tickets) > 1):
+            ticket, n = self._crec_tickets.pop(0)
+            row = ticket.resolve()
+            local.objv += float(row[0])
+            local.num_ex += int(row[1])
+            local.count += n
+            local.acc += float(row[2])
+            local.wdelta2 += float(row[3])
+            bins = (len(row) - 4) // 2
+            hist[0] += row[4:4 + bins]
+            hist[1] += row[4 + bins:]
+            resolved = True
+        if resolved:
+            local.auc = auc_from_hist(*hist) * local.count
+            self._display(local)
+
+    def _drain_crec2_train(self, local: Progress,
+                           final: bool = True) -> None:
+        self._harvest_macc(local, self._crec_hist, self._crec_count, final)
+        self._crec_count = 0
+
+    def flush_metrics(self) -> Progress:
+        """Drain any deferred crec2 metrics; returns the tail Progress
+        (callers merge it into their running totals)."""
+        tail = Progress()
+        self._drain_crec2_train(tail)
+        return tail
 
     def _process_crec(self, file: str, part: int, nparts: int,
                       kind: str, pooled: Optional[list]) -> Progress:
         """The crec2 streaming path: block bytes go to the device as they
-        are (PackedFeed), each block runs the tile eval step, and the
-        per-block metrics and margins come back in one copy per block,
-        ``CREC_DRAIN_CHUNK`` blocks at a time."""
-        if kind == TRAIN:
-            raise NotImplementedError(_NEXT_SLICE)
+        are (PackedFeed). A train block runs ``store.tile_train_step``,
+        gated so that at most ``max(max_delay, 1)`` steps are in flight
+        (``max_delay=0``: no two device steps overlap) with tau = the steps
+        still in flight; its metrics stay on the device until the window
+        drains. An eval block runs the tile eval step, and its metrics and
+        margins come back in one copy per block, ``CREC_DRAIN_CHUNK`` blocks
+        at a time."""
         info = read_header2(file)
         if info.nb != self.cfg.num_buckets:
             raise ValueError(
@@ -106,9 +191,24 @@ class AsyncSGD:
                 f"but config says {self.cfg.num_buckets} (the tile grouping "
                 "is bucket-count specific)")
         local = Progress()
+        feed = PackedFeed(file, part, nparts, device=self.device)
+        if kind == TRAIN:
+            max_delay = self.cfg.max_delay
+            tau_cap = float(max(max_delay - 1, 0))
+            inflight: deque = deque()
+            for dev, _host, _rows in feed:
+                while len(inflight) > max(max_delay - 1, 0):
+                    self._harvest(inflight.popleft(), local)
+                ticket = self.store.tile_train_step(
+                    dev, info, tau=min(float(len(inflight)), tau_cap))
+                self._crec_count += 1
+                inflight.append(ticket)
+                if self._crec_count >= self.CREC_DRAIN_CHUNK:
+                    self._drain_crec2_train(local, final=False)
+            self._drain_crec2_train(local)
+            return local
         pending: list = []
-        for dev, host, _rows in PackedFeed(file, part, nparts,
-                                           device=self.device):
+        for dev, host, _rows in feed:
             objv, num_ex, acc, pos, neg, margin = \
                 self.store.tile_eval_step(dev, info)
             packed = torch.cat([torch.stack([objv, num_ex, acc]), pos, neg,
@@ -118,6 +218,14 @@ class AsyncSGD:
                 self._drain(pending, local, pooled)
         self._drain(pending, local, pooled)
         return local
+
+    def _harvest(self, ticket, local: Progress) -> None:
+        """Wait for a train step to finish (its completion event), then
+        drain the metric window if the display is due."""
+        if ticket is not None:
+            ticket.synchronize()
+        if self.reporter.due():
+            self._drain_crec2_train(local, final=False)
 
     @staticmethod
     def _drain(pending: list, local: Progress,
@@ -143,15 +251,53 @@ class AsyncSGD:
     # -- scheduler loop -----------------------------------------------------
 
     def run(self) -> Progress:
-        """Pass/workload loop (AsyncSGDScheduler::Run, async_sgd.h:294-348):
-        warm start from ``model_in``, then predict ``test_data`` and save
-        ``model_out``. Training passes are the next slice."""
+        """Pass/workload loop (AsyncSGDScheduler::Run, async_sgd.h:294-348;
+        the single-process loop of wormhole_tpu/learners/async_sgd.py:1052):
+        warm start from ``model_in``, ``max_data_pass`` training passes with
+        a validation pass after each and the epsilon early stop, then
+        predict ``test_data`` and save ``model_out``."""
         cfg = self.cfg
+        self._check_ported()
         if cfg.model_in:
             self._store_io("load", cfg.model_in)
             log.info("warm start from %s", cfg.model_in)
         if cfg.max_data_pass > 0:
-            raise NotImplementedError(_NEXT_SLICE)
+            print(Progress.HEADER)
+        prev_objv_ex = None
+        for data_pass in range(cfg.max_data_pass):
+            pool = WorkloadPool()
+            pool.add(cfg.train_data, cfg.num_parts_per_file, TRAIN)
+            pass_prog = Progress()
+            while True:
+                wl = pool.get("proc0")
+                if wl is None:
+                    break
+                prog = self.process(wl.file, wl.part, wl.nparts, wl.kind)
+                self.progress.merge(prog)
+                pass_prog.merge(prog)
+                pool.finish(wl.id)
+                self._check_divergence(prog)
+            tail = self.flush_metrics()
+            self.progress.merge(tail)
+            pass_prog.merge(tail)
+            self._check_divergence(tail)
+            self._crec_hist = [np.zeros(512), np.zeros(512)]  # pass-level
+            self._nnz_w = self.store.nnz_weight()
+            rec = {"pass": data_pass, "train_num_ex": pass_prog.num_ex,
+                   "train_objv": pass_prog.objv / max(pass_prog.num_ex, 1)}
+            if cfg.val_data:
+                vp, pass_auc = self._run_eval(cfg.val_data)
+                n = max(vp.num_ex, 1)
+                rec.update(val_num_ex=vp.num_ex, val_objv=vp.objv / n,
+                           val_auc=pass_auc,
+                           val_acc=vp.acc / max(vp.count, 1))
+                log.info("pass %d validation: objv=%.6f auc=%.6f acc=%.6f",
+                         data_pass, rec["val_objv"], pass_auc,
+                         rec["val_acc"])
+            self.pass_log.append(rec)
+            if self._converged(data_pass, pass_prog, prev_objv_ex):
+                break
+            prev_objv_ex = pass_prog.objv / max(pass_prog.num_ex, 1)
         if cfg.test_data:
             self.predict(cfg.test_data, cfg.pred_out)
         if cfg.model_out:
@@ -218,6 +364,47 @@ class AsyncSGD:
             self.store.save_model(path, 0, key_fold="mix32")
         else:
             self.store.load_model(path, expect_key_fold="mix32")
+
+    # -- display and stop rules -----------------------------------------------
+
+    def _display(self, local: Progress) -> None:
+        self.reporter.report(local)
+
+    def _emit_row(self, local: Progress) -> None:
+        snap = Progress(self.progress.fvec + local.fvec,
+                        self.progress.ivec + local.ivec)
+        # nnz from the last pass boundary: a live count would sync the
+        # device every display window
+        snap.nnz_w = self._nnz_w
+        print(snap.print_row(time.time() - self.start_time,
+                             self._prev_num_ex))
+        self._prev_num_ex = snap.num_ex
+
+    def _converged(self, data_pass: int, pass_prog: Progress,
+                   prev_objv_ex) -> bool:
+        """Early stop (Config.epsilon): a pass that improves per-example
+        objv by less than epsilon (relatively) ends training."""
+        eps = self.cfg.epsilon
+        if not eps or prev_objv_ex is None or pass_prog.num_ex == 0:
+            return False
+        cur = pass_prog.objv / max(pass_prog.num_ex, 1)
+        rel = (prev_objv_ex - cur) / max(abs(prev_objv_ex), 1e-12)
+        if rel < eps:
+            log.info("converged at pass %d: relative objv improvement "
+                     "%.2e < epsilon %.2e", data_pass, rel, eps)
+            return True
+        return False
+
+    def _check_divergence(self, prog: Progress) -> None:
+        """Kill switch on the freshest workload part; NaN always counts as
+        diverged (async_sgd.h:316-319)."""
+        per_ex = prog.objv / max(prog.num_ex, 1)
+        if np.isnan(per_ex):
+            raise DivergedError("objv is NaN")
+        if self.cfg.max_objv and per_ex > self.cfg.max_objv:
+            raise DivergedError(
+                f"objv {per_ex:.4f} > max_objv {self.cfg.max_objv} "
+                f"(async_sgd.h:316-319 kill switch)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

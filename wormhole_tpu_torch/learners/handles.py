@@ -6,9 +6,13 @@ handles work on a ``(k, val_len)`` slot matrix; the port keeps the slots
 plane-major, ``(val_len, k)``, so the weight plane ``slots[0]`` is one
 contiguous vector that the forward kernel reads as it is.
 
-This slice serves a trained model: ``init``, ``weights`` and ``warm_start``.
-The update rules (``push``/``update``) and the other algorithms come with the
-training slice (ROADMAP.md).
+FTRL is ported whole: ``init``, ``weights``, ``warm_start`` and the update
+rule. ``update`` is the plain torch slot math; ``push`` applies it to the
+table IN PLACE (one table, not the JAX package's functional copy) and
+returns Σ(w' - w)². On a CUDA table ``push`` launches the ``__device__`` twin
+of ``update`` (``csrc/tile_math.cuh``), the same code the fused train step
+runs in its epilogue. The other algorithms come with a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,6 +49,12 @@ class Handle:
         plane-major table)."""
         return slots[0]
 
+    def push(self, slots: torch.Tensor, grad: torch.Tensor, t=None,
+             tau=None) -> torch.Tensor:
+        """Apply a (k,) gradient to the (val_len, k) f32 slots in place;
+        returns Σ(w' - w)² as a 0-d f32 tensor."""
+        raise NotImplementedError
+
     def warm_start(self, w: torch.Tensor) -> torch.Tensor:
         """Slots that make ``w`` a fixed point of a zero-gradient push
         (model_in warm start, linear.cc:115-123): w in plane 0,
@@ -61,6 +71,23 @@ class FTRLHandle(Handle):
     z accumulates g − σ·w and w = prox(−z) with curvature (β+cg)/α."""
 
     val_len: int = 3
+
+    def update(self, w, z, cg, grad):
+        """The elementwise slot math on unstacked planes
+        (wormhole_tpu/learners/handles.py:108): cg' = √(cg² + g²),
+        σ = (cg' − cg)/α, z' = (z + g) − σ·w, w' = prox(−z') with
+        curvature (β + cg')/α. Returns (w', z', cg')."""
+        cg_new = torch.sqrt(cg * cg + grad * grad)
+        sigma = (cg_new - cg) / self.lr.alpha
+        z_new = (z + grad) - sigma * w
+        w_new = self.penalty.solve(
+            -z_new, (self.lr.beta + cg_new) / self.lr.alpha)
+        return w_new, z_new, cg_new
+
+    def push(self, slots, grad, t=None, tau=None):
+        """FTRL ignores the clock and the staleness (``t``, ``tau``)."""
+        from wormhole_tpu_torch.ops.tilemm import ftrl_push
+        return ftrl_push(slots, grad, self)
 
     def warm_start(self, w: torch.Tensor) -> torch.Tensor:
         """FTRL derives w from z (w = prox(−z)), so a warm start seeds z

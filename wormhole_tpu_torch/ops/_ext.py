@@ -25,8 +25,12 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# --fmad=false: no multiply-add is contracted into an FMA, so the shared
+# train-step math (csrc/tile_math.cuh) rounds alike in every kernel and the
+# fused and split paths agree bitwise
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # guarded-by: _lock
@@ -46,7 +50,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

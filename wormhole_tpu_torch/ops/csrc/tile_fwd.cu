@@ -1,15 +1,8 @@
 // Tile forward margins on Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces wormhole_tpu/ops/tilemm.py `_fwd_kernel` (:309, built by
-// `_build_fwd` :573). It computes, for every packed pair word of one crec2
-// block,
-//
-//     margin[s*8192 + rhi*128 + rlo] += bf16(w[t*16384 + hi*128 + lo])
-//
-// accumulated in f32, where word fields are lo = bits 0..6, hi = 7..15,
-// rlo = 16..22, rhi = 23..28, and words with hi >= 128 (the pad word
-// 511 << 7) add nothing. w is rounded to bf16 round-to-nearest-even, as
-// the TPU kernel's operand is (`_build_fwd` :581).
+// `_build_fwd` :573). The device code and its determinism design live in
+// tile_fwd.cuh, which tile_step.cu shares as phase 1 of the train step.
 //
 // What bounds it: bytes. The TPU kernel turned the gather into one-hot MXU
 // matmuls (~350 GFLOP of bf16 per 98,304-row criteo block) because the TPU
@@ -17,105 +10,19 @@
 // fits the 50 MB L2, so this kernel is a direct gather: it must move the
 // pair words (17.3 MB), w once (16.8 MB) and the margins (0.39 MB).
 //
-// Determinism: every row's ~39 pairs are spread over all tiles, so a
-// parallel sum needs care. The design is "partial slabs" with no float
-// atomics:
-//   pass 1: one CTA per (subblock, chunk of tiles_per_chunk tiles) keeps a
-//     private 8192-row slab in shared memory. Warp k owns rows
-//     [k*1024, (k+1)*1024) and walks the chunk's words in (tile, slot)
-//     order, 32 lanes at a time; lanes holding the same row are merged by
-//     __match_any_sync and the group's leader adds the values in lane order.
-//     Only the owning warp ever touches a row, so each row is summed
-//     sequentially in word order. The slab is written to `partial`.
-//   pass 2: one thread per row sums its chunk slabs in chunk order.
-// The result is the same bits on every run.
-//
 // A simple kernel first: no TMA/wgmma, no tuning. Every warp reads all of
 // its chunk's words (8x redundant L1 reads); later work can remove that.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "tile_fwd.cuh"
 
 namespace {
 
-constexpr int TILE = 16384;          // buckets per tile (128 x 128)
-constexpr int RSUB = 8192;           // rows per subblock (64 x 128)
-constexpr int WARPS = 8;             // warps per pass-1 CTA
-constexpr int ROW_SHIFT = 10;        // RSUB / WARPS = 1024 rows per warp
-constexpr int UNROLL = 8;            // 32-word batches in flight per warp
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-tile_fwd_partial(const int32_t* __restrict__ pw, const float* __restrict__ w,
-                 float* __restrict__ partial, int T, int SG, int GS, int C,
-                 int tiles_per_chunk, int nchunk) {
-  __shared__ float slab[RSUB];
-  __shared__ float stage[WARPS][32];
-  const int chunk = blockIdx.x;
-  const int s = blockIdx.y;
-  const int g = s / GS, j = s % GS;
-  const long long N = (long long)GS * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int r = threadIdx.x; r < RSUB; r += blockDim.x) slab[r] = 0.f;
-  __syncthreads();
-
-  const int t0 = chunk * tiles_per_chunk;
-  const int t1 = min(T, t0 + tiles_per_chunk);
-  for (int t = t0; t < t1; ++t) {
-    const int32_t* seg = pw + ((long long)t * SG + g) * N + (long long)j * C;
-    const float* wt = w + (long long)t * TILE;
-    for (int c0 = 0; c0 < C; c0 += 32 * UNROLL) {
-      int row[UNROLL];
-      float val[UNROLL];
-      bool mine[UNROLL];
-      // issue every load of the batch before any use: UNROLL gathers in
-      // flight per warp hide the L2 latency of w
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int c = c0 + u * 32 + lane;
-        const unsigned word = c < C ? (unsigned)__ldg(seg + c) : (511u << 7);
-        const unsigned hi = (word >> 7) & 511u;
-        row[u] = (int)((((word >> 23) & 63u) << 7) | ((word >> 16) & 127u));
-        mine[u] = hi < 128u && (row[u] >> ROW_SHIFT) == warp;
-        val[u] = mine[u] ? __ldg(wt + ((hi << 7) | (word & 127u))) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (__ballot_sync(FULL, mine[u]) == 0u) continue;   // warp-uniform
-        const unsigned grp = __match_any_sync(FULL, mine[u] ? row[u] : -1);
-        stage[warp][lane] = bf16_round(val[u]);
-        __syncwarp();
-        if (mine[u] && (__ffs(grp) - 1) == lane) {
-          float acc = slab[row[u]];
-          for (unsigned m = grp; m; m &= m - 1u)
-            acc += stage[warp][__ffs(m) - 1];
-          slab[row[u]] = acc;
-        }
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
-  float* out = partial + ((long long)s * nchunk + chunk) * RSUB;
-  for (int r = threadIdx.x; r < RSUB; r += blockDim.x) out[r] = slab[r];
-}
-
 __global__ void tile_fwd_combine(const float* __restrict__ partial,
-                                 float* __restrict__ margins, int S,
+                                 float* __restrict__ margins, long long rows,
                                  int nchunk) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)S * RSUB) return;
-  const long long s = i / RSUB, r = i % RSUB;
-  const float* p = partial + s * nchunk * RSUB + r;
-  float acc = 0.f;
-  for (int c = 0; c < nchunk; ++c) acc += p[(long long)c * RSUB];
-  margins[i] = acc;
+  if (i >= rows) return;
+  margins[i] = wh::fwd_combine_row(partial, i, nchunk);
 }
 
 }  // namespace
@@ -130,16 +37,14 @@ extern "C" {
 int wh_tile_fwd(const int32_t* pw, const float* w, float* partial,
                 float* margins, int T, int SG, int GS, int C,
                 int tiles_per_chunk, void* stream) {
-  const int nchunk = (T + tiles_per_chunk - 1) / tiles_per_chunk;
-  const int S = SG * GS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  tile_fwd_partial<<<dim3(nchunk, S), WARPS * 32, 0, st>>>(
-      pw, w, partial, T, SG, GS, C, tiles_per_chunk, nchunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)S * RSUB;
+  int err = wh::launch_fwd_partial(pw, w, partial, T, SG, GS, C,
+                                   tiles_per_chunk, st);
+  if (err != 0) return err;
+  const int nchunk = (T + tiles_per_chunk - 1) / tiles_per_chunk;
+  const long long rows = (long long)SG * GS * wh::RSUB;
   tile_fwd_combine<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
-      partial, margins, S, nchunk);
+      partial, margins, rows, nchunk);
   return (int)cudaGetLastError();
 }
 

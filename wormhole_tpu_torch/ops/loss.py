@@ -5,11 +5,14 @@ The counterpart of ``wormhole_tpu/ops/loss.py`` (reference
 y ∈ {-1, +1}; every function takes a row mask (padded rows contribute 0) and
 returns sums, so results merge across blocks by a plain add.
 
-The JAX package guards some products with ``opaque_one`` so a Pallas kernel
-and XLA contract them into FMAs alike (its fused/split bit-parity contract).
-The port has no fused training kernel yet; when one lands, its CUDA side pins
-contraction itself (``--fmad=false`` or ``__fmul_rn``), so the torch
-expressions here carry no guard.
+These are the plain torch versions. On the card the duals run in CUDA:
+``csrc/tile_math.cuh`` holds their ``__device__`` twins, which the fused
+train step calls at its phase boundary and ``tilemm.loss_dual`` launches on
+the split path. The JAX package guards some products with ``opaque_one`` so a
+Pallas kernel and XLA contract them into FMAs alike (its fused/split
+bit-parity contract); the port's kernels are built with ``--fmad=false``
+(``ops/_ext.py``), which pins contraction in every kernel at once, so the
+torch expressions here carry no guard.
 """
 
 from __future__ import annotations
@@ -80,9 +83,26 @@ _LOSSES = {
 }
 
 
-def create_loss(name: str):
-    """Factory (reference CreateLoss, loss.h:130-141): (objv_fn, dual_fn)."""
+# the loss ids the CUDA kernels take (csrc/tile_math.cuh enum Loss)
+LOSS_IDS = {"logit": 0, "hinge": 1, "square_hinge": 2, "square": 3}
+
+
+def loss_key(name) -> str:
+    """The lower-case loss name of a name or a ``Loss`` enum member."""
     key = name.lower() if isinstance(name, str) else name.value
     if key not in _LOSSES:
         raise ValueError(f"unknown loss {name!r}; have {sorted(_LOSSES)}")
-    return _LOSSES[key]
+    return key
+
+
+def nudge_zero_dual(dual, labels, row_mask):
+    """Replace exactly-zero duals of real rows with a signed 1e-30 so a
+    saturated row still touches its buckets (the JAX store's
+    ``_nudge_zero_dual``, wormhole_tpu/learners/store.py:117)."""
+    eps = torch.where(labels > 0.5, -1e-30, 1e-30).to(dual.dtype)
+    return torch.where((dual == 0.0) & (row_mask > 0), eps, dual)
+
+
+def create_loss(name: str):
+    """Factory (reference CreateLoss, loss.h:130-141): (objv_fn, dual_fn)."""
+    return _LOSSES[loss_key(name)]

@@ -1,4 +1,4 @@
-"""Tile-grouped crec2 pairs: layout, host encoder, and the forward margins.
+"""Tile-grouped crec2 pairs: layout, host encoder, and the train-step ops.
 
 The counterpart of ``wormhole_tpu/ops/tilemm.py``. The bucket space
 ``[0, nb)`` is cut into tiles of 16384 = (hi 128) x (lo 128) buckets and a
@@ -10,15 +10,30 @@ past ``cap`` in their (subblock, tile) cell spill to an exact COO list.
 
 The layout, constants and the numpy encoder are copies of the JAX package's
 (``tilemm.py:66-256``), so both packages write and read the same bytes. The
-device half differs: the TPU ran the gather as one-hot MXU matmuls because it
-has no fast gather; Hopper has one, so ``forward_margins`` launches the direct
-gather kernel ``csrc/tile_fwd.cu`` on a CUDA tensor. On a CPU tensor it runs
-``forward_margins_plain`` (decode + gather + ``index_add_``), the plain torch
-version the tests hold the kernel against.
+device half differs: the TPU ran the gather and the scatter as one-hot MXU
+matmuls because it has no fast gather; Hopper has one, so the ops launch
+hand-written kernels from ``csrc/`` on a CUDA tensor:
+
+- ``forward_margins`` → ``tile_fwd.cu`` (margins of one block);
+- ``backward_grad`` → ``tile_bwd.cu`` (the per-bucket gradient, any spec);
+- ``fused_step_grad`` / ``fused_step_update`` → ``tile_step.cu`` (a whole
+  train step: forward, dual, backward, and the FTRL update in place);
+- ``loss_dual`` / ``ftrl_push`` → ``tile_step.cu`` (the split path's
+  elementwise math, the same device functions the fused steps run).
+
+Each has a plain torch version beside it (``*_plain``): the wrapper runs it
+for a CPU tensor, and only there; a CUDA tensor launches the kernel or
+raises. Each wrapper counts its launches in ``.launches``. The kernels sum
+in fixed orders without float atomics, so they return the same bits on every
+run, and the fused steps equal the split chain bitwise. The COO spill adds
+(``spill_margin_rows``, ``spill_grad_scatter``) stay in torch and are
+deterministic too. ``resolve_step_kernel`` picks fused or split as the JAX
+package does, with ``auto`` resolving to fused on a CUDA device.
 
 Device operands: ``pw`` is int32 (every field sits below bit 29, so the u32
-words read the same), ``w`` float32; the spill lists are int32, the
-``0xFFFFFFFF`` unused-slot sentinel reading as -1.
+words read the same), ``w`` and the row vectors float32; the spill lists are
+int32, the ``0xFFFFFFFF`` unused-slot sentinel reading as -1. The FTRL slots
+are the store's plane-major ``(3, nb)`` float32 table.
 """
 
 from __future__ import annotations
@@ -29,6 +44,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from wormhole_tpu_torch.ops import _ext
+from wormhole_tpu_torch.ops.loss import (LOSS_IDS, create_loss, loss_key,
+                                         nudge_zero_dual)
 
 A_HI = 128          # bucket hi digit
 B_LO = 128          # bucket lo digit
@@ -206,6 +225,65 @@ def encode_block_capped(buckets: np.ndarray, rows: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# operand checks, scratch and the kernel libraries
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, want {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(spec: TileSpec, device, **rows) -> None:
+    for name, t in rows.items():
+        _check(name, t, torch.float32, (spec.block_rows,), device)
+
+
+def _check_slots(slots: torch.Tensor, nb: int, device) -> None:
+    _check("slots", slots, torch.float32, (3, nb), device)
+    if nb % TILE:
+        raise ValueError(f"nb {nb} not a multiple of {TILE}")
+
+
+def _lib(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with ``fn``'s C signature set."""
+    lib = _ext.load(name)
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _word_scratch(pw: torch.Tensor) -> torch.Tensor:
+    """One bf16 per pair word: csrc/tile_bwd.cuh's word-ordered duals."""
+    return torch.empty(pw.numel(), dtype=torch.bfloat16, device=pw.device)
+
+
+def _fwd_scratch(spec: TileSpec, device) -> Tuple[torch.Tensor, int]:
+    """(partial slabs, tiles per chunk) of csrc/tile_fwd.cuh's pass 1."""
+    per_chunk = -(-spec.tiles // TILE_CHUNKS)
+    nchunk = -(-spec.tiles // per_chunk)
+    return (torch.empty((spec.subblocks, nchunk, RSUB), dtype=torch.float32,
+                        device=device), per_chunk)
+
+
+# ---------------------------------------------------------------------------
 # forward margins: the plain torch version and the kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -262,42 +340,47 @@ def forward_margins_plain(pw: torch.Tensor, w: torch.Tensor,
                        device=pw.device).index_add_(0, row[valid], vals)
 
 
-_TILE_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p]
-
-
 def _launch_tile_fwd(pw: torch.Tensor, w: torch.Tensor,
                      spec: TileSpec) -> torch.Tensor:
-    from wormhole_tpu_torch.ops import _ext
-    lib = _ext.load("tile_fwd")
-    lib.wh_tile_fwd.argtypes = _TILE_FWD_ARGTYPES
-    lib.wh_tile_fwd.restype = ctypes.c_int
+    lib = _lib("tile_fwd", "wh_tile_fwd", [_P] * 4 + [_I] * 5 + [_P])
     T, SG, _ = spec.pairs_shape
-    per_chunk = -(-T // TILE_CHUNKS)
-    nchunk = -(-T // per_chunk)
-    partial = torch.empty((spec.subblocks, nchunk, RSUB),
-                          dtype=torch.float32, device=pw.device)
+    partial, per_chunk = _fwd_scratch(spec, pw.device)
     margins = torch.empty(spec.block_rows, dtype=torch.float32,
                           device=pw.device)
     with torch.cuda.device(pw.device):
-        stream = torch.cuda.current_stream(pw.device).cuda_stream
         err = lib.wh_tile_fwd(pw.data_ptr(), w.data_ptr(),
                               partial.data_ptr(), margins.data_ptr(),
-                              T, SG, spec.group, spec.cap, per_chunk, stream)
+                              T, SG, spec.group, spec.cap, per_chunk,
+                              _stream(pw))
     _ext.check(lib, err, "tile_fwd")
     return margins
+
+
+def _run_sums(keys: torch.Tensor, vals: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distinct keys, the sum of ``vals`` over each key), without float
+    atomics: the pairs are sorted by key (stable), each run of equal keys
+    is laid out along one row of an (n, n) zero-padded matrix — at most
+    ``ovf_cap``² floats — and summed there by a fixed-order reduction. The
+    same inputs give the same bits on every run, on the CPU and on CUDA."""
+    n = keys.shape[0]
+    dev = keys.device
+    ks, order = torch.sort(keys, stable=True)
+    vs = vals[order]
+    idx = torch.arange(n, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = ks[1:] != ks[:-1]
+    start = torch.cummax(torch.where(first, idx, 0), 0).values
+    runs = torch.zeros((n, n), dtype=vals.dtype, device=dev)
+    runs[start, idx - start] = vs
+    return ks[first], runs.sum(1)[first]
 
 
 def spill_margin_rows(w: torch.Tensor, ovf_b: torch.Tensor,
                       ovf_r: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """(block_rows,) f32 spill margins: each valid COO pair's f32 w lands
-    on its row (sentinel slots add nothing).
-
-    Deterministic without float atomics: the pairs are sorted by row
-    (stable), each run of equal rows is laid out along one row of a
-    (n, n) zero-padded matrix — at most ``ovf_cap``² floats — and summed
-    there by a fixed-order reduction, then written to its row."""
-    n = ovf_b.shape[0]
+    on its row (sentinel slots add nothing), summed per row by
+    ``_run_sums`` — deterministic without float atomics."""
     dev = w.device
     valid = ovf_b != OVF_SENTINEL
     b = torch.where(valid, ovf_b, 0).to(torch.int64)
@@ -305,17 +388,9 @@ def spill_margin_rows(w: torch.Tensor, ovf_b: torch.Tensor,
     # sentinel slots sort into a dummy row past the block, dropped below
     r = torch.where(valid, ovf_r.to(torch.int64) % spec.block_rows,
                     spec.block_rows)
-    rs, order = torch.sort(r, stable=True)
-    vs = wv[order]
-    idx = torch.arange(n, device=dev)
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = rs[1:] != rs[:-1]
-    start = torch.cummax(torch.where(first, idx, 0), 0).values
-    runs = torch.zeros((n, n), dtype=w.dtype, device=dev)
-    runs[start, idx - start] = vs
-    sums = runs.sum(1)[start]            # every member carries its run sum
+    rows, sums = _run_sums(r, wv)
     out = torch.zeros(spec.block_rows + 1, dtype=w.dtype, device=dev)
-    out[rs] = sums                       # equal rows write equal values
+    out[rows] = sums
     return out[:spec.block_rows]
 
 
@@ -347,10 +422,407 @@ def forward_margins(pw: torch.Tensor, w: torch.Tensor, spec: TileSpec,
 forward_margins.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# training: the step-kernel resolver
+# ---------------------------------------------------------------------------
+
+STEP_KERNELS = ("auto", "fused", "split")
+ONEHOT_CACHES = ("auto", "on", "off")
+
+_NO_ONEHOT_PLANES = ("the Hopper kernels gather and scatter the pair words "
+                     "directly and build no one-hot planes to stage")
+
+
+@dataclass(frozen=True)
+class StepResolution:
+    """Structured result of resolve_step_kernel: the resolved kernel, the
+    split reason (empty when fused), and the one-hot cache decision with
+    its off-reason. ``cache_record`` is the string the store's
+    ``step_kernel`` records beside the split reason."""
+    kernel: str
+    why: str = ""
+    cache: bool = False
+    cache_why: str = ""
+
+    @property
+    def cache_record(self) -> str:
+        return ("onehot_cache=on" if self.cache
+                else f"onehot_cache=off:{self.cache_why}")
+
+
+def _onehot_cache_decision(resolved: str, knob: str,
+                           spec: Optional[TileSpec], channels: int,
+                           deep: bool) -> Tuple[bool, str]:
+    """The cache half of resolve_step_kernel. The structural exclusions keep
+    the JAX package's wording; where the TPU would stage its planes, the
+    port records that its kernels have none (the cache is never on)."""
+    if knob == "off":
+        return False, "forced off"
+    if resolved != "fused":
+        return False, "split path shares no phases"
+    if channels > 1 or deep:
+        return False, ("multi-channel kernels hoist one wide compare "
+                       "across channels; no per-phase rebuild to stage")
+    if spec is None:
+        return False, "no tile spec at resolve time"
+    if spec.fuse > 1:
+        return False, ("fuse>1 re-views pairs into K-tile chains; the "
+                       "staged planes do not align with the bwd view")
+    return False, _NO_ONEHOT_PLANES
+
+
+def resolve_step_kernel(kernel: str, *, ovf_cap: int = 0,
+                        mesh: bool = False, deep: bool = False,
+                        spec: Optional[TileSpec] = None,
+                        onehot_cache: str = "auto",
+                        channels: int = 1,
+                        device="cuda") -> StepResolution:
+    """Resolve the ``tile_step_kernel`` + ``tile_onehot_cache`` knobs to a
+    :class:`StepResolution` (``wormhole_tpu/ops/tilemm.py:1086``): ``why``
+    names the reason whenever the resolution is split, ``cache_why``
+    whenever the one-hot cache is off (always, on Hopper). Structural
+    inadmissibility (mesh, wide&deep spill, a wide&deep step with no spec)
+    wins over a forced ``fused`` and never raises. ``auto`` resolves to
+    fused on a CUDA ``device`` and to split, "auto on cpu device", on the
+    CPU. The wide&deep VMEM budget of the TPU has no counterpart here."""
+    if kernel not in STEP_KERNELS:
+        raise ValueError(f"tile_step_kernel must be one of "
+                         f"{STEP_KERNELS}, got {kernel!r}")
+    if onehot_cache not in ONEHOT_CACHES:
+        raise ValueError(f"tile_onehot_cache must be one of "
+                         f"{ONEHOT_CACHES}, got {onehot_cache!r}")
+
+    def res(k: str, why: str = "") -> StepResolution:
+        cache, cwhy = _onehot_cache_decision(k, onehot_cache, spec,
+                                             channels, deep)
+        return StepResolution(k, why, cache, cwhy)
+
+    if mesh:
+        return res("split", ("mesh psums (margins over model, grads "
+                             "over data) sit between the phases the "
+                             "fusion joins"))
+    if deep:
+        if ovf_cap > 0:
+            return res("split", ("wide&deep spill needs the pull "
+                                 "channels in HBM for the COO scatter "
+                                 "between the phases"))
+        if spec is None:
+            return res("split", ("no tile spec at resolve time to "
+                                 "budget the in-kernel MLP phase "
+                                 "against VMEM"))
+    if kernel == "split":
+        return res("split", "forced")
+    if kernel == "fused":
+        return res("fused")
+    dev_type = torch.device(device).type
+    if dev_type == "cuda":
+        return res("fused")
+    return res("split", f"auto on {dev_type} device")
+
+
+# ---------------------------------------------------------------------------
+# training: the loss dual and the FTRL push (split path's elementwise math)
+# ---------------------------------------------------------------------------
+
+def loss_dual_plain(margins, labels, mask, loss: str,
+                    exact_dense: bool) -> torch.Tensor:
+    """d objv / d margin per row [then the zero-dual nudge], plain torch."""
+    dual = create_loss(loss)[1](margins, labels, mask)
+    return dual if exact_dense else nudge_zero_dual(dual, labels, mask)
+
+
+def loss_dual(margins: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor, loss: str,
+              exact_dense: bool) -> torch.Tensor:
+    """The split path's dual, (rows,) f32 from f32 margins/labels/mask. On
+    a CUDA tensor it launches ``wh_loss_dual`` (csrc/tile_step.cu), the
+    same ``__device__`` math the fused step runs at its phase boundary, so
+    the two paths give the same bits; on a CPU tensor, and only there, it
+    runs ``loss_dual_plain``."""
+    key = loss_key(loss)
+    n = margins.shape[0]
+    for name, t in (("margins", margins), ("labels", labels),
+                    ("mask", mask)):
+        _check(name, t, torch.float32, (n,), margins.device)
+    if margins.device.type != "cuda":
+        return loss_dual_plain(margins, labels, mask, key, exact_dense)
+    lib = _lib("tile_step", "wh_loss_dual",
+               [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P])
+    dual = torch.empty_like(margins)
+    with torch.cuda.device(margins.device):
+        err = lib.wh_loss_dual(margins.data_ptr(), labels.data_ptr(),
+                               mask.data_ptr(), dual.data_ptr(), n,
+                               LOSS_IDS[key], int(exact_dense),
+                               _stream(margins))
+    _ext.check(lib, err, "loss_dual")
+    loss_dual.launches += 1
+    return dual
+
+
+loss_dual.launches = 0
+
+
+def ftrl_push_plain(slots: torch.Tensor, grad: torch.Tensor,
+                    handle) -> torch.Tensor:
+    """``handle.update`` on the plane-major (3, nb) slots, in place;
+    returns Σ(w' - w)² as a 0-d f32 tensor."""
+    w_new, z_new, cg_new = handle.update(slots[0], slots[1], slots[2], grad)
+    d0 = w_new - slots[0]
+    wdelta2 = torch.sum(d0 * d0)
+    slots[0], slots[1], slots[2] = w_new, z_new, cg_new
+    return wdelta2
+
+
+def ftrl_push(slots: torch.Tensor, grad: torch.Tensor,
+              handle) -> torch.Tensor:
+    """FTRL push of a (nb,) gradient into the plane-major (3, nb) f32
+    slots, IN PLACE (the port keeps one table, not the JAX package's
+    functional copy); returns Σ(w' - w)² (0-d f32), which the metric tail
+    needs and the in-place update can no longer compute afterwards.
+
+    On a CUDA tensor it launches ``wh_ftrl_push`` (csrc/tile_step.cu): one
+    CTA per tile runs the same ``__device__`` update and the same per-tile
+    Σ(Δw)² reduction as the fused update step, so split and fused agree
+    bitwise; on a CPU tensor, and only there, ``ftrl_push_plain``."""
+    nb = grad.shape[0]
+    _check_slots(slots, nb, grad.device)
+    _check("grad", grad, torch.float32, (nb,), grad.device)
+    if grad.device.type != "cuda":
+        return ftrl_push_plain(slots, grad, handle)
+    lib = _lib("tile_step", "wh_ftrl_push",
+               [_P] * 5 + [_I] + [_F] * 4 + [_P])
+    T = nb // TILE
+    part = torch.empty(T, dtype=torch.float32, device=grad.device)
+    p, lr = handle.penalty, handle.lr
+    with torch.cuda.device(grad.device):
+        err = lib.wh_ftrl_push(grad.data_ptr(), slots[0].data_ptr(),
+                               slots[1].data_ptr(), slots[2].data_ptr(),
+                               part.data_ptr(), T, lr.alpha, lr.beta,
+                               p.lambda1, p.lambda2, _stream(grad))
+    _ext.check(lib, err, "ftrl_push")
+    ftrl_push.launches += 1
+    return part.sum()
+
+
+ftrl_push.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: the backward gradient and the COO spill scatter
+# ---------------------------------------------------------------------------
+
+def spill_grad_scatter(g: torch.Tensor, dual_rows: torch.Tensor,
+                       ovf_b: torch.Tensor, ovf_r: torch.Tensor,
+                       spec: TileSpec) -> torch.Tensor:
+    """Add each spill pair's f32 dual into the (nb,) gradient ``g`` — IN
+    PLACE, and returns ``g``: the grad-side COO tail shared by
+    ``backward_grad`` and the fused spill step. Deterministic without float
+    atomics: the pairs' duals are summed per bucket by ``_run_sums`` and
+    each touched bucket gets one add."""
+    valid = ovf_b != OVF_SENTINEL
+    rows = ovf_r.to(torch.int64) % spec.block_rows
+    d = torch.where(valid, dual_rows[rows],
+                    torch.zeros((), dtype=g.dtype, device=g.device))
+    # sentinel slots sort into a dummy bucket past the table, dropped below
+    b = torch.where(valid, ovf_b.to(torch.int64), spec.nb)
+    buckets, sums = _run_sums(b, d)
+    keep = buckets < spec.nb
+    buckets, sums = buckets[keep], sums[keep]
+    g[buckets] = g[buckets] + sums
+    return g
+
+
+def backward_grad_plain(pw: torch.Tensor, dual_rows: torch.Tensor,
+                        spec: TileSpec) -> torch.Tensor:
+    """grad (nb,) f32 = per bucket, the sum of bf16(dual[row]) over its
+    pair words — decode, gather and ``index_add_`` in plain torch."""
+    bucket, row, valid = decode_pairs(pw, spec)
+    db = dual_rows.to(torch.bfloat16).to(torch.float32)
+    return torch.zeros(spec.nb, dtype=torch.float32,
+                       device=pw.device).index_add_(0, bucket[valid],
+                                                    db[row[valid]])
+
+
+def _check_bwd(pw, dual_rows, spec) -> None:
+    if pw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {pw.device} unsupported")
+    _check("pw", pw, torch.int32, spec.pairs_shape, pw.device)
+    _check_rows(spec, pw.device, dual_rows=dual_rows)
+
+
+def backward_grad(pw: torch.Tensor, dual_rows: torch.Tensor,
+                  spec: TileSpec, ovf_b: Optional[torch.Tensor] = None,
+                  ovf_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """grad (nb,) f32 = per bucket, the sum of bf16(dual[row]) over its pair
+    words, plus the spill pairs' f32 duals (``spill_grad_scatter``).
+
+    The wrapper of ``csrc/tile_bwd.cu``, which replaces the TPU kernels
+    ``_bwd_kernel`` (#2) and, on a ``fuse > 1`` spec, ``_bwd_kernel_fused``
+    (#3): the Hopper kernel reads the pair bytes as they are, whatever the
+    spec's K. On a CUDA tensor it launches the kernel (counted in
+    ``backward_grad.launches``) or raises; on a CPU tensor, and only there,
+    it runs ``backward_grad_plain``. Each bucket is summed in one fixed
+    order, the same as the fused step's backward, so the result is the same
+    bits on every run."""
+    _check_bwd(pw, dual_rows, spec)
+    if pw.device.type == "cuda":
+        lib = _lib("tile_bwd", "wh_tile_bwd", [_P] * 4 + [_I] * 4 + [_P])
+        grad = torch.empty(spec.nb, dtype=torch.float32, device=pw.device)
+        dv = _word_scratch(pw)
+        T, SG, _ = spec.pairs_shape
+        with torch.cuda.device(pw.device):
+            err = lib.wh_tile_bwd(pw.data_ptr(), dual_rows.data_ptr(),
+                                  dv.data_ptr(), grad.data_ptr(), T, SG,
+                                  spec.group, spec.cap, _stream(pw))
+        _ext.check(lib, err, "tile_bwd")
+        backward_grad.launches += 1
+    else:
+        grad = backward_grad_plain(pw, dual_rows, spec)
+    if ovf_b is not None and ovf_b.shape[0]:
+        grad = spill_grad_scatter(grad, dual_rows, ovf_b, ovf_r, spec)
+    return grad
+
+
+backward_grad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: the fused steps
+# ---------------------------------------------------------------------------
+
+def fused_step_grad_plain(pw, w, labels, mask, spec: TileSpec, loss: str,
+                          exact_dense: bool, spill_margins=None):
+    """forward → [+ spill grid] → dual [→ nudge] → backward, plain torch:
+    (margins, grad)."""
+    margins = forward_margins_plain(pw, w, spec)
+    if spill_margins is not None:
+        margins = margins + spill_margins
+    dual = loss_dual_plain(margins, labels, mask, loss, exact_dense)
+    return margins, backward_grad_plain(pw, dual, spec)
+
+
+def fused_step_grad(pw: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor, spec: TileSpec, loss: str,
+                    exact_dense: bool,
+                    spill_margins: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step's (margins (block_rows,), grad (nb,)): the forward, the
+    pre-aggregated spill grid (``spill_margin_rows``) added before the dual,
+    the dual [and the zero-dual nudge when not ``exact_dense``], and the
+    backward. The caller runs ``spill_grad_scatter`` on the grad with the
+    dual it recomputes from the returned margins (``loss_dual``, the same
+    device math, so the same bits).
+
+    The wrapper of ``wh_step_grad`` (csrc/tile_step.cu), which replaces the
+    TPU kernel ``_make_step_kernel`` built by ``_build_step_grad`` (#6). On
+    a CUDA tensor it launches the step (counted in
+    ``fused_step_grad.launches``) or raises; on a CPU tensor, and only
+    there, it runs ``fused_step_grad_plain``. Its margins and grad equal
+    the split chain forward_margins → loss_dual → backward_grad bitwise."""
+    key = loss_key(loss)
+    _check_operands(pw, w, spec)
+    _check_rows(spec, pw.device, labels=labels, mask=mask)
+    if spill_margins is not None:
+        _check_rows(spec, pw.device, spill_margins=spill_margins)
+    if pw.device.type != "cuda":
+        return fused_step_grad_plain(pw, w, labels, mask, spec, key,
+                                     exact_dense, spill_margins)
+    lib = _lib("tile_step", "wh_step_grad",
+               [_P] * 10 + [_I] * 7 + [_P])
+    dev = pw.device
+    partial, per_chunk = _fwd_scratch(spec, dev)
+    margins = torch.empty(spec.block_rows, dtype=torch.float32, device=dev)
+    dual = torch.empty(spec.block_rows, dtype=torch.bfloat16, device=dev)
+    dv = _word_scratch(pw)
+    grad = torch.empty(spec.nb, dtype=torch.float32, device=dev)
+    T, SG, _ = spec.pairs_shape
+    with torch.cuda.device(dev):
+        err = lib.wh_step_grad(
+            pw.data_ptr(), w.data_ptr(), labels.data_ptr(), mask.data_ptr(),
+            _ptr(spill_margins), partial.data_ptr(), margins.data_ptr(),
+            dual.data_ptr(), dv.data_ptr(), grad.data_ptr(),
+            T, SG, spec.group, spec.cap,
+            per_chunk, LOSS_IDS[key], int(exact_dense), _stream(pw))
+    _ext.check(lib, err, "tile_step_grad")
+    fused_step_grad.launches += 1
+    return margins, grad
+
+
+fused_step_grad.launches = 0
+
+
+def fused_step_update_plain(pw, slots, labels, mask, spec: TileSpec,
+                            loss: str, handle):
+    """forward → dual → backward → FTRL push, plain torch, in place on the
+    (3, nb) slots: (margins, Σ(w' - w)²)."""
+    margins = forward_margins_plain(pw, slots[0], spec)
+    dual = loss_dual_plain(margins, labels, mask, loss, True)
+    grad = backward_grad_plain(pw, dual, spec)
+    return margins, ftrl_push_plain(slots, grad, handle)
+
+
+def fused_step_update(pw: torch.Tensor, slots: torch.Tensor,
+                      labels: torch.Tensor, mask: torch.Tensor,
+                      spec: TileSpec, loss: str, handle
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step with the FTRL update applied in place to the plane-major
+    (3, nb) f32 slots [w, z, √Σg²]: returns (margins (block_rows,),
+    Σ(w' - w)² as a 0-d f32 tensor). FTRL is exact-dense, so there is no
+    nudge; spill blocks take ``fused_step_grad``.
+
+    The wrapper of ``wh_step_update`` (csrc/tile_step.cu), which replaces
+    the TPU kernel ``_make_step_kernel`` + ``_GradSink`` built by
+    ``_build_step_update`` (#7): each tile's gradient stays in shared
+    memory and goes straight into the update, so the (nb,) gradient never
+    exists in device memory. On a CUDA tensor it launches the step (counted
+    in ``fused_step_update.launches``) or raises; on a CPU tensor, and only
+    there, ``fused_step_update_plain``. Margins and slots equal the split
+    chain's (… → backward_grad → ftrl_push) bitwise."""
+    key = loss_key(loss)
+    _check_slots(slots, spec.nb, pw.device)
+    _check_operands(pw, slots[0], spec)
+    _check_rows(spec, pw.device, labels=labels, mask=mask)
+    if pw.device.type != "cuda":
+        return fused_step_update_plain(pw, slots, labels, mask, spec, key,
+                                       handle)
+    lib = _lib("tile_step", "wh_step_update",
+               [_P] * 11 + [_I] * 6 + [_F] * 4 + [_P])
+    dev = pw.device
+    partial, per_chunk = _fwd_scratch(spec, dev)
+    margins = torch.empty(spec.block_rows, dtype=torch.float32, device=dev)
+    dual = torch.empty(spec.block_rows, dtype=torch.bfloat16, device=dev)
+    dv = _word_scratch(pw)
+    T, SG, _ = spec.pairs_shape
+    part = torch.empty(T, dtype=torch.float32, device=dev)
+    p, lr = handle.penalty, handle.lr
+    with torch.cuda.device(dev):
+        err = lib.wh_step_update(
+            pw.data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
+            slots[2].data_ptr(), labels.data_ptr(), mask.data_ptr(),
+            partial.data_ptr(), margins.data_ptr(), dual.data_ptr(),
+            dv.data_ptr(), part.data_ptr(), T, SG,
+            spec.group, spec.cap, per_chunk,
+            LOSS_IDS[key], lr.alpha, lr.beta, p.lambda1, p.lambda2,
+            _stream(pw))
+    _ext.check(lib, err, "tile_step_update")
+    fused_step_update.launches += 1
+    return margins, part.sum()
+
+
+fused_step_update.launches = 0
+
+
 # -- slow exact reference (tests / differential checking) -------------------
 
 def forward_margins_ref(buckets: np.ndarray, rows: np.ndarray,
                         w: np.ndarray, block_rows: int) -> np.ndarray:
     out = np.zeros(block_rows, np.float64)
     np.add.at(out, rows, np.asarray(w, np.float64)[buckets])
+    return out.astype(np.float32)
+
+
+def backward_grad_ref(buckets: np.ndarray, rows: np.ndarray,
+                      dual_rows: np.ndarray, nb: int) -> np.ndarray:
+    out = np.zeros(nb, np.float64)
+    np.add.at(out, buckets, np.asarray(dual_rows, np.float64)[rows])
     return out.astype(np.float32)
