@@ -48,8 +48,10 @@ error:
     width on the uniform and the spill block: ``tile_pulls``/``tile_pushes``
     at ch 10, 17 and 18, ``tile_fm_step`` with and without the spill grid
     (logit and hinge), ``tile_wd_step`` and the ``fm_boundary``/
-    ``wd_boundary`` launches; requires two runs bitwise equal and the fused
-    steps equal to the split chain bitwise;
+    ``wd_boundary`` launches; requires two runs bitwise equal, the fused
+    steps equal to the split chain bitwise, ``tile_pushes`` equal to its
+    order-exact plain version bitwise, and the pushes' bucket index
+    (``push_index``) equal to its plain version exactly;
 12. writes another spill file and ovf_cap=0 file and trains FM and
     wide&deep 2 passes with validation: through each model's ``main`` on
     the fused resolution, then in process on ``fused`` and ``split`` on both
@@ -312,10 +314,11 @@ def flip_tol(torch, keys, idx, a, b, n):
 
 
 def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
-    """#4 and #5 at ch 10, 17 and 18, fused_fm_step with and without
-    spill and fused_wd_step at full width: against their plain versions,
-    two runs bitwise equal, fused = split chain bitwise. Records the
-    largest error per kernel in ``errs``."""
+    """#4 and #5 at ch 10, 17 and 18 (#5 and its bucket index bitwise
+    equal to their plain versions), fused_fm_step with and without spill
+    and fused_wd_step at full width: against their plain versions, two runs
+    bitwise equal, fused = split chain bitwise. Records the largest error
+    per kernel in ``errs``."""
     rows, nb = spec.block_rows, spec.nb
     labels = torch.from_numpy((rng.random(rows) < 0.25).astype(
         np.float32)).to(dev)
@@ -334,6 +337,14 @@ def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
             (None, None)
         bucket, row, valid = tt.decode_pairs(pw, spec)
         kb, kr = bucket[valid], row[valid]
+        start, perm = tt.push_index(pw, spec)
+        ps, pp = tt.push_index_plain(pw, spec)
+        require(torch.equal(start, ps) and torch.equal(perm, pp),
+                f"push_index {kind}: the bucket index differs from its "
+                "plain version")
+        print(f"push_index {kind}: {perm.numel()} words in "
+              f"{int((ps[1:] > ps[:-1]).sum())} buckets, = plain exactly")
+        del start, perm, ps, pp
         for ch in (10, 17, 18):
             w = f32(rng.standard_normal((nb, ch)) * 0.1)
             a = tt.forward_pulls(pw, w, spec, *spill)
@@ -360,11 +371,15 @@ def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
             require(bool(torch.all(err2 <= chan_tol(torch, kb, kr, dv, nb)
                                    + 2.0 ** -23 * plain.double().abs())),
                     f"tile_pushes {kind} ch {ch}: vs plain {err2.max():.3e}")
+            # both sum each (bucket, channel) from 0 in word order
+            require(torch.equal(a, plain), f"tile_pushes {kind} ch {ch}: "
+                    f"not bitwise equal to the order-exact plain version "
+                    f"({int((a != plain).sum())} entries differ)")
             note("tile_pushes", err2.max())
             print(f"tile_pulls/tile_pushes {kind} ch {ch}: max |kernel - "
                   f"plain| {err.max():.3e} / {err2.max():.3e} (per (row or "
-                  f"bucket, channel) 4*n*2^-24*sum|bf16 x|), bitwise repeat "
-                  f"ok")
+                  f"bucket, channel) 4*n*2^-24*sum|bf16 x|), pushes = plain "
+                  f"bitwise, bitwise repeat ok")
             del a, b, plain, err, err2, w, dv
         # the FM step (k 8, 10 channels), with the spill grid on the spill
         # block

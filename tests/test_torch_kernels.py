@@ -11,7 +11,9 @@ row, since kernel and plain version differ only in f32 summation order. The
 gradient's is the same bound over each bucket's bf16 duals. The FTRL slots
 after a step are held to the plain version within 1e-5·(1 + |x|): they
 start from the same gradient up to that bound, and the update adds a few
-f32 roundings (the CPU tests derive the full per-slot bound).
+f32 roundings (the CPU tests derive the full per-slot bound). The
+multi-channel pushes and their plain version both sum each (bucket,
+channel) in word order, so they are held to bitwise equality.
 """
 
 import os
@@ -428,9 +430,46 @@ def test_pulls_and_pushes_match_plain_and_repeat(cuda, ch, skew):
     pp = tt.forward_pulls_plain(o["pw"], wd, SPEC).cpu().numpy()
     assert np.all(np.abs(a.cpu().numpy() - pp)
                   <= chan_tol(kr, kb, w, SPEC.block_rows))
-    gp = tt.backward_pushes_plain(o["pw"], dvd, SPEC).cpu().numpy()
-    assert np.all(np.abs(ga.cpu().numpy() - gp)
-                  <= chan_tol(kb, kr, dv, SPEC.nb))
+    # the pushes sum each (bucket, channel) in word order, as the plain
+    # version does: equal bit for bit
+    assert torch.equal(ga, tt.backward_pushes_plain(o["pw"], dvd, SPEC))
+
+
+# 22,528 words a tile: past the index build's 20,480-word window, so a
+# tile's words are placed in two windows
+WIDE = tt.TileSpec(nb=2 * tt.TILE, subblocks=2, cap=11264, group=2,
+                   tiles_step=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "skew", "two_windows"])
+def test_push_index_kernel_equals_plain(cuda, case):
+    """The pushes' bucket index built on the card (bucket starts, and each
+    bucket's block rows in word order) equals push_index_plain exactly, and
+    the pushes over it equal the plain version bitwise."""
+    if case == "two_windows":
+        rng = np.random.default_rng(67)
+        buckets = rng.integers(0, WIDE.nb, size=30000)
+        rows = rng.integers(0, WIDE.block_rows, size=30000)
+        # fill tile 0's subblock 1 past the window (2,048 words there), with
+        # one bucket's words in both windows
+        buckets[:11000] = rng.integers(0, tt.TILE, 11000)
+        rows[:11000] = rng.integers(tt.RSUB, 2 * tt.RSUB, 11000)
+        buckets[11000:14000] = 16000
+        pw = as_i32(tt.encode_block_capped(buckets, rows, WIDE, 64)[0], cuda)
+        spec = WIDE
+    else:
+        pw, spec = step_operands(66, cuda, case == "skew")["pw"], SPEC
+    before = tt.push_index.launches
+    start, perm = tt.push_index(pw, spec)
+    torch.cuda.synchronize()
+    assert tt.push_index.launches == before + 1
+    ps, pp = tt.push_index_plain(pw, spec)
+    assert torch.equal(start, ps) and torch.equal(perm, pp)
+    dv = torch.from_numpy(np.random.default_rng(68).standard_normal(
+        (spec.block_rows, 3)).astype(np.float32)).to(cuda)
+    assert torch.equal(tt.backward_pushes(pw, dv, spec),
+                       tt.backward_pushes_plain(pw, dv, spec))
 
 
 @pytest.mark.cuda
@@ -503,12 +542,25 @@ def test_fused_wd_step_equals_split_bitwise_on_cuda(cuda, hidden):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["table_cpu", "table_1d", "dvals_shape",
-                                 "fm_width", "mlp_width"])
+                                 "fm_width", "mlp_width", "push_scratch"])
 def test_multi_kernels_reject_bad_cuda_operands(cuda, bad):
     o = multi_operands(90, cuda)
     before = multi_counts()
-    with pytest.raises((TypeError, ValueError)):
-        if bad == "table_cpu":
+    exc = RuntimeError if bad == "push_scratch" else (TypeError, ValueError)
+    with pytest.raises(exc):
+        if bad == "push_scratch":   # the pushes' index scratch left out
+            lib = tt._lib("tile_multi", "wh_tile_pushes",
+                          [tt._P] * 6 + [tt._I] * 5 + [tt._P])
+            dv = torch.zeros((SPEC.block_rows, 3), device=cuda)
+            dvb = dv.to(torch.bfloat16)
+            out = torch.empty((SPEC.nb, 3), device=cuda)
+            T, SG, _ = SPEC.pairs_shape
+            err = lib.wh_tile_pushes(o["pw"].data_ptr(), dv.data_ptr(),
+                                     dvb.data_ptr(), None, None,
+                                     out.data_ptr(), T, SG, SPEC.group,
+                                     SPEC.cap, 3, tt._stream(o["pw"]))
+            _ext.check(lib, err, "tile_pushes")
+        elif bad == "table_cpu":
             tt.forward_pulls(o["pw"], o["fm_w"].cpu(), SPEC)
         elif bad == "table_1d":
             tt.forward_pulls(o["pw"], o["w"], SPEC)

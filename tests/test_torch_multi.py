@@ -141,6 +141,78 @@ def test_backward_pushes_matches_jax(ch, spill):
     assert np.count_nonzero(got.numpy()[:, 0]) > 0.9 * len(np.unique(kb))
 
 
+# -- the pushes' bucket index and the order-exact plain pushes ----------------
+
+def word_order_pairs(pw):
+    """(bucket, row) int64 of the valid words in word order: (tile, group,
+    slot) order, read straight off the packed layout."""
+    T, SG, _ = SPEC.pairs_shape
+    p = pw.reshape(T, SG, SPEC.group, SPEC.cap).astype(np.int64)
+    hi = (p >> 7) & 511
+    t = np.arange(T)[:, None, None, None]
+    s = (np.arange(SG)[None, :, None, None] * SPEC.group
+         + np.arange(SPEC.group)[None, None, :, None])
+    bucket = np.broadcast_to(t * tt.TILE + ((hi & 127) << 7 | (p & 127)),
+                             p.shape)
+    row = np.broadcast_to(s * tt.RSUB + (((p >> 23) & 63) << 7
+                                         | ((p >> 16) & 127)), p.shape)
+    valid = hi < 128
+    return bucket[valid], row[valid]
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_push_index_plain_is_a_stable_bucket_sort(spill):
+    """start is monotone from 0, its counts are the bincount of the valid
+    words' buckets, and each bucket's rows are its words in word order;
+    the wrapper takes the plain path on a CPU tensor and counts no
+    launch."""
+    pw, _, _, _ = block(90, skew=spill)
+    before = tt.push_index.launches
+    start, perm = tt.push_index(i32(pw), SPEC)
+    assert tt.push_index.launches == before
+    want = tt.push_index_plain(i32(pw), SPEC)
+    assert torch.equal(start, want[0]) and torch.equal(perm, want[1])
+    assert start.dtype == perm.dtype == torch.int32
+    assert start.shape == (SPEC.nb + 1,)
+    st = start.numpy().astype(np.int64)
+    kb, kr = word_order_pairs(pw)
+    assert st[0] == 0 and np.all(np.diff(st) >= 0)
+    assert np.array_equal(np.diff(st), np.bincount(kb, minlength=SPEC.nb))
+    assert st[-1] == len(kb) == perm.numel()
+    for b in np.unique(kb):
+        assert np.array_equal(perm.numpy()[st[b]:st[b + 1]], kr[kb == b])
+    if spill:   # the hot bucket holds more words than any other
+        assert np.diff(st).max() > 100
+
+
+def word_order_fold(pw, dv):
+    """pushes by a Python loop: each word's bf16 value row added into its
+    bucket in f32, from 0, one word at a time in word order."""
+    out = np.zeros((SPEC.nb, dv.shape[1]), np.float32)
+    vb = bf16(dv).astype(np.float32)
+    for b, r in zip(*word_order_pairs(pw)):
+        out[b] = out[b] + vb[r]
+    return out
+
+
+@pytest.mark.parametrize("ch", [1, 10, 18])
+@pytest.mark.parametrize("spill", [False, True])
+def test_backward_pushes_plain_sums_in_word_order_bitwise(ch, spill):
+    """The order-exact plain pushes equal a Python word-order fold, and the
+    single index_add_ over all words that the CPU ran before (it adds in
+    index order too), bit for bit."""
+    pw, _, _, _ = block(91 + ch, skew=spill)
+    dv = (np.random.default_rng(92).standard_normal((SPEC.block_rows, ch))
+          * 0.5).astype(np.float32)
+    got = tt.backward_pushes_plain(i32(pw), f32(dv), SPEC)
+    assert got.numpy().tobytes() == word_order_fold(pw, dv).tobytes()
+    bucket, row, valid = tt.decode_pairs(i32(pw), SPEC)
+    one_call = torch.zeros((SPEC.nb, ch)).index_add_(
+        0, bucket[valid], f32(dv).to(torch.bfloat16).float()[row[valid]])
+    assert torch.equal(got, one_call)
+    assert torch.equal(tt.backward_pushes(i32(pw), f32(dv), SPEC), got)
+
+
 def test_spill_helpers_match_jax_and_are_reproducible():
     rng = np.random.default_rng(82)
     ch, n = 5, 64

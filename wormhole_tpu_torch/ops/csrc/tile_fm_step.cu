@@ -17,12 +17,13 @@
 //      JAX channel order, the dual, and writes the bf16 push grid
 //      [dual, dual·s_1..dual·s_k, mask] (and, with spill, its f32 rows for
 //      the torch spill scatter);
-//   3. tile_pushes_tile (tile_multi.cuh) over the same k+2 channels.
+//   3. the pushes (tile_multi.cuh launch_pushes_tile: the bucket index,
+//      then one segmented sum) over the same k+2 channels.
 //
 // What bounds it: bytes. Per full-width block at k = 8: the words (17.3 MB)
 // twice, the (nb, 10) f32 pull table (168 MB) and the (nb, 10) f32 pushes
-// (168 MB), labels, mask and margins. The chunk slabs and the bf16 push
-// grid are this design's extra traffic.
+// (168 MB), labels, mask and margins. The chunk slabs, the bf16 push grid
+// and the pushes' bucket index are this design's extra traffic.
 
 #include "tile_math.cuh"
 #include "tile_multi.cuh"
@@ -67,13 +68,15 @@ extern "C" {
 // (margins (S*8192,), pushes (T*16384, k+2)) from pw (T, SG, GS*C) i32, the
 // pull table w (T*16384, k+2) f32, the f32 labels/mask rows and `spill`, the
 // (S*8192, k+2) spill-pull grid or null. partial (S, nchunk, 8192, k+2) f32
-// and dvb (S*8192, k+2) bf16 are scratch; dvf (S*8192, k+2) f32 receives the
-// push rows when not null. Returns cudaGetLastError() after each launch.
+// and dvb (S*8192, k+2) bf16 are scratch, and so are the pushes' bucket
+// index: index (T*16384 + 1 + T) and perm (T*SG*GS*C) int32; dvf (S*8192,
+// k+2) f32 receives the push rows when not null. Returns cudaGetLastError()
+// after each launch.
 int wh_fm_step(const int32_t* pw, const float* w, const float* labels,
                const float* mask, const float* spill, float* partial,
-               float* margins, __nv_bfloat16* dvb, float* dvf, float* pushes,
-               int T, int SG, int GS, int C, int k, int tiles_per_chunk,
-               int loss, void* stream) {
+               float* margins, __nv_bfloat16* dvb, float* dvf, int* index,
+               int* perm, float* pushes, int T, int SG, int GS, int C, int k,
+               int tiles_per_chunk, int loss, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ch = k + 2;
   int err = wh::launch_pulls_partial(pw, w, partial, T, SG, GS, C, ch,
@@ -86,7 +89,8 @@ int wh_fm_step(const int32_t* pw, const float* w, const float* labels,
       dvb, dvf, rows, k, loss, 1);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return wh::launch_pushes_tile(pw, dvb, pushes, T, SG, GS, C, ch, st);
+  return wh::launch_pushes_tile(pw, dvb, index, perm, pushes, T, SG, GS, C,
+                                ch, st);
 }
 
 // The boundary alone from (rows, k+2) f32 pulls: margins, and with

@@ -6,9 +6,10 @@
 //     pallas_call :811): wh_tile_pulls, the pooled pulls (rows, ch);
 //   - `_bwd_multi_kernel` (:741, built by `_build_bwd_multi` :832,
 //     pallas_call :844): wh_tile_pushes, the channel pushes (nb, ch).
-// The device code and its design (channel groups, the chunk count, the
-// in-loop gather of the push values) live in tile_multi.cuh, which the
-// fused FM and wide&deep steps share, so split and fused sum alike.
+// The device code and its design (the pulls' channel groups and chunk
+// count, the pushes' bucket index and segmented sum) live in
+// tile_multi.cuh, which the fused FM and wide&deep steps share, so split and
+// fused sum alike.
 //
 // What bounds them: bytes. Per full-width criteo block (2^22 buckets,
 // 98,304 rows) the pulls must read the pair words (17.3 MB) and the (nb, ch)
@@ -17,8 +18,10 @@
 // (302 MB at ch 18). The TPU ran both as one-hot MXU matmuls, one channel
 // block of lanes each; Hopper gathers and scatters directly.
 //
-// A simple kernel first: each channel group re-reads the words, and the
-// pulls' chunk slabs add a (S, nchunk, 8192, ch) f32 round trip.
+// The pulls are still the simple first kernel: each channel group re-reads
+// the words, and the chunk slabs add a (S, nchunk, 8192, ch) f32 round
+// trip. The pushes read the words three times and add the index's scratch
+// (perm and start, about 35 MB at full width) to the bytes above.
 
 #include "tile_multi.cuh"
 
@@ -55,17 +58,30 @@ int wh_tile_pulls(const int32_t* pw, const float* w, float* partial,
 }
 
 // pushes (T*16384, ch) f32 from pw and the f32 value rows (S*8192, ch),
-// rounded to bf16 into the scratch grid dvb (S*8192, ch) first.
+// rounded to bf16 into the scratch grid dvb (S*8192, ch) first. index
+// (T*16384 + 1 + T) and perm (T*SG*GS*C) int32 are scratch for the bucket
+// index.
 int wh_tile_pushes(const int32_t* pw, const float* dvals, __nv_bfloat16* dvb,
-                   float* pushes, int T, int SG, int GS, int C, int ch,
-                   void* stream) {
+                   int* index, int* perm, float* pushes, int T, int SG,
+                   int GS, int C, int ch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n = (long long)SG * GS * wh::RSUB * ch;
   wh::round_rows_bf16<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       dvals, dvb, n);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return wh::launch_pushes_tile(pw, dvb, pushes, T, SG, GS, C, ch, st);
+  return wh::launch_pushes_tile(pw, dvb, index, perm, pushes, T, SG, GS, C,
+                                ch, st);
+}
+
+// The pushes' bucket index alone (a CSR of pw's valid words by bucket):
+// index[0..T*16384] the bucket starts, index[T*16384 + 1 + t] tile t's
+// valid words, perm[start[b]..start[b+1]) bucket b's block rows in word
+// order (perm holds T*SG*GS*C int32).
+int wh_push_index(const int32_t* pw, int* index, int* perm, int T, int SG,
+                  int GS, int C, void* stream) {
+  return wh::launch_push_index(pw, index, perm, T, SG, GS, C,
+                               static_cast<cudaStream_t>(stream));
 }
 
 const char* wh_error_string(int err) {

@@ -20,7 +20,8 @@
 //   3. wd_param_partial + wd_param_combine: each parameter's gradient,
 //      Σ_rows activation·cotangent, as per-chunk partial sums over 512-row
 //      chunks, then one fixed-order combine: deterministic, no atomics;
-//   4. tile_pushes_tile (tile_multi.cuh) over ch_out = k+2 channels.
+//   4. the pushes (tile_multi.cuh launch_pushes_tile: the bucket index,
+//      then one segmented sum) over ch_out = k+2 channels.
 // The weights sit in shared memory when they fit in 48 KB (3,201 floats,
 // 12.8 KB, at k 16 and hidden (64, 32)); otherwise the kernels read them
 // through L2. Any hidden widths run; there is no size-based fallback.
@@ -216,14 +217,17 @@ extern "C" {
 // and the flat f32 MLP parameters [W0, b0, W1, b1, ...] (P floats) with
 // layer sizes `sizes` (L+1 device ints, sizes[0] = k, sizes[L] = 1).
 // Scratch: partial (S, nchunk, 8192, 1+k) f32, acts (Σ_{l<L} s_l, rows)
-// f32, gz (Σ_{l<L} s_{l+1}, rows) f32, gpart (ceil(rows/512), P) f32 and
-// dvb (rows, k+2) bf16. Returns cudaGetLastError() after each launch.
+// f32, gz (Σ_{l<L} s_{l+1}, rows) f32, gpart (ceil(rows/512), P) f32,
+// dvb (rows, k+2) bf16, and the pushes' bucket index: index (T*16384 + 1 +
+// T) and perm (T*SG*GS*C) int32. Returns cudaGetLastError() after each
+// launch.
 int wh_wd_step(const int32_t* pw, const float* w, const float* labels,
                const float* mask, const float* params, const int* sizes,
                int L, int P, float* partial, float* acts, float* gz,
                float* gpart, float* margins, __nv_bfloat16* dvb,
-               float* gparams, float* pushes, int T, int SG, int GS, int C,
-               int k, int tiles_per_chunk, int loss, void* stream) {
+               float* gparams, int* index, int* perm, float* pushes, int T,
+               int SG, int GS, int C, int k, int tiles_per_chunk, int loss,
+               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = wh::launch_pulls_partial(pw, w, partial, T, SG, GS, C, k + 1,
                                      tiles_per_chunk, st);
@@ -234,7 +238,8 @@ int wh_wd_step(const int32_t* pw, const float* w, const float* labels,
                  mask, params, sizes, L, P, acts, gz, gpart, margins, dvb,
                  nullptr, gparams, rows, loss, 1, st);
   if (err != 0) return err;
-  return wh::launch_pushes_tile(pw, dvb, pushes, T, SG, GS, C, k + 2, st);
+  return wh::launch_pushes_tile(pw, dvb, index, perm, pushes, T, SG, GS, C,
+                                k + 2, st);
 }
 
 // The boundary alone from (rows, 1+k) f32 pulls: margins, and with

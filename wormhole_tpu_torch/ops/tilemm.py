@@ -24,7 +24,8 @@ hand-written kernels from ``csrc/`` on a CUDA tensor:
 The multi-channel ops of the FM and wide&deep models (``models/``):
 
 - ``forward_pulls`` / ``backward_pushes`` → ``tile_multi.cu`` (the (rows,
-  ch) pooled pulls and the (nb, ch) channel pushes);
+  ch) pooled pulls and the (nb, ch) channel pushes; ``push_index`` runs
+  the pushes' bucket index alone);
 - ``fused_fm_step`` → ``tile_fm_step.cu`` (pulls, the FM margin, dual and
   push channels, pushes), with ``fm_boundary`` its boundary math alone;
 - ``fused_wd_step`` → ``tile_wd_step.cu`` (pulls, the MLP forward and vjp,
@@ -870,6 +871,16 @@ def _pull_scratch(spec: TileSpec, ch: int, device
                         dtype=torch.float32, device=device), per_chunk)
 
 
+def _push_scratch(spec: TileSpec, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(index, perm) int32 scratch of csrc/tile_multi.cuh's pushes: index
+    holds the bucket starts (nb + 1) and the tile counts (tiles), perm one
+    block row per pair word (17.3 MB at full width)."""
+    T, SG, N = spec.pairs_shape
+    return (torch.empty(spec.nb + 1 + T, dtype=torch.int32, device=device),
+            torch.empty(T * SG * N, dtype=torch.int32, device=device))
+
+
 def _check_table(name: str, t: torch.Tensor, n: int, device) -> int:
     """A (n, ch) f32 contiguous table on ``device``; returns ch."""
     if t.dim() != 2:
@@ -969,15 +980,73 @@ def forward_pulls(pw: torch.Tensor, w: torch.Tensor, spec: TileSpec,
 forward_pulls.launches = 0
 
 
+def _push_csr(pw: torch.Tensor, spec: TileSpec
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(start (nb+1,), bucket, row) int64: the valid pair words sorted by
+    bucket, stably, so each bucket's words stay in word order ((tile,
+    group, slot) order, the order ``decode_pairs`` flattens them in)."""
+    bucket, row, valid = decode_pairs(pw, spec)
+    kb, kr = bucket[valid], row[valid]
+    order = torch.argsort(kb, stable=True)
+    start = torch.zeros(spec.nb + 1, dtype=torch.int64, device=pw.device)
+    start[1:] = torch.cumsum(torch.bincount(kb, minlength=spec.nb), 0)
+    return start, kb[order], kr[order]
+
+
+def push_index_plain(pw: torch.Tensor, spec: TileSpec
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(start (nb+1,), perm (n,)) int32: the CSR by bucket of the block's n
+    valid pair words that csrc/tile_multi.cuh's pushes build. Bucket b's
+    words are perm[start[b]:start[b+1]], each as its block row, in word
+    order."""
+    _check_pw(pw, spec)
+    start, _, rows = _push_csr(pw, spec)
+    return start.to(torch.int32), rows.to(torch.int32)
+
+
+def push_index(pw: torch.Tensor, spec: TileSpec
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``push_index_plain``'s (start, perm), built by the index launches of
+    the pushes alone (``wh_push_index``, csrc/tile_multi.cu), so a test can
+    hold the index against its plain version. On a CUDA tensor it launches
+    the kernel (counted in ``push_index.launches``) or raises; on a CPU
+    tensor, and only there, ``push_index_plain``."""
+    _check_pw(pw, spec)
+    if pw.device.type != "cuda":
+        return push_index_plain(pw, spec)
+    lib = _lib("tile_multi", "wh_push_index", [_P] * 3 + [_I] * 4 + [_P])
+    index, perm = _push_scratch(spec, pw.device)
+    T, SG, _ = spec.pairs_shape
+    with torch.cuda.device(pw.device):
+        err = lib.wh_push_index(pw.data_ptr(), index.data_ptr(),
+                                perm.data_ptr(), T, SG, spec.group,
+                                spec.cap, _stream(pw))
+    _ext.check(lib, err, "push_index")
+    push_index.launches += 1
+    start = index[:spec.nb + 1]
+    return start, perm[:int(start[-1])]
+
+
+push_index.launches = 0
+
+
 def backward_pushes_plain(pw: torch.Tensor, dvals: torch.Tensor,
                           spec: TileSpec) -> torch.Tensor:
     """pushes (nb, ch) f32 = per bucket, the sum of bf16(dvals[row, :])
-    over its pair words — decode, gather and ``index_add_``."""
-    bucket, row, valid = decode_pairs(pw, spec)
+    over its pair words, from 0 in f32, left to right in word order, on any
+    device. Each word's rank among its bucket's words comes from a stable
+    sort by bucket, then one ``index_add_`` per rank: within one rank the
+    buckets are distinct, so no two adds meet and the order is exact."""
+    start, kb, kr = _push_csr(pw, spec)
+    rank = torch.arange(kb.numel(), device=pw.device) - start[kb]
+    by_rank = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist()
     db = dvals.to(torch.bfloat16).to(torch.float32)
-    return torch.zeros((spec.nb, dvals.shape[1]), dtype=torch.float32,
-                       device=pw.device).index_add_(0, bucket[valid],
-                                                    db[row[valid]])
+    out = torch.zeros((spec.nb, dvals.shape[1]), dtype=torch.float32,
+                      device=pw.device)
+    for b, r in zip(kb[by_rank].split(sizes), kr[by_rank].split(sizes)):
+        out.index_add_(0, b, db[r])
+    return out
 
 
 def backward_pushes(pw: torch.Tensor, dvals: torch.Tensor, spec: TileSpec,
@@ -990,21 +1059,24 @@ def backward_pushes(pw: torch.Tensor, dvals: torch.Tensor, spec: TileSpec,
     The wrapper of ``wh_tile_pushes`` (csrc/tile_multi.cu), which replaces
     the TPU kernel ``_bwd_multi_kernel`` (#5). On a CUDA tensor it launches
     the kernel (counted in ``backward_pushes.launches``) or raises; on a
-    CPU tensor, and only there, ``backward_pushes_plain``. Every (bucket,
-    channel) is summed in one fixed order, the same as the fused steps'
-    pushes, so the result is the same bits on every run."""
+    CPU tensor, and only there, ``backward_pushes_plain``. The kernel
+    builds a CSR of the words by bucket (``push_index``) and sums every
+    (bucket, channel) from 0 in word order, as the plain version does, so it
+    equals that version bitwise; the fused steps run the same device code."""
     _check_pw(pw, spec)
     ch = _check_table("dvals", dvals, spec.block_rows, pw.device)
     if pw.device.type == "cuda":
-        lib = _lib("tile_multi", "wh_tile_pushes", [_P] * 4 + [_I] * 5 + [_P])
+        lib = _lib("tile_multi", "wh_tile_pushes", [_P] * 6 + [_I] * 5 + [_P])
         dvb = torch.empty((spec.block_rows, ch), dtype=torch.bfloat16,
                           device=pw.device)
+        index, perm = _push_scratch(spec, pw.device)
         pushes = torch.empty((spec.nb, ch), dtype=torch.float32,
                              device=pw.device)
         T, SG, _ = spec.pairs_shape
         with torch.cuda.device(pw.device):
             err = lib.wh_tile_pushes(pw.data_ptr(), dvals.data_ptr(),
-                                     dvb.data_ptr(), pushes.data_ptr(), T,
+                                     dvb.data_ptr(), index.data_ptr(),
+                                     perm.data_ptr(), pushes.data_ptr(), T,
                                      SG, spec.group, spec.cap, ch,
                                      _stream(pw))
         _ext.check(lib, err, "tile_pushes")
@@ -1125,22 +1197,23 @@ def fused_fm_step(pw: torch.Tensor, wpull: torch.Tensor,
     if pw.device.type != "cuda":
         return fused_fm_step_plain(pw, wpull, labels, mask, spec, k, key,
                                    spill_pulls)
-    lib = _lib("tile_fm_step", "wh_fm_step", [_P] * 10 + [_I] * 7 + [_P])
+    lib = _lib("tile_fm_step", "wh_fm_step", [_P] * 12 + [_I] * 7 + [_P])
     dev, ch, rows = pw.device, k + 2, spec.block_rows
     partial, per_chunk = _pull_scratch(spec, ch, dev)
     margins = torch.empty(rows, dtype=torch.float32, device=dev)
     dvb = torch.empty((rows, ch), dtype=torch.bfloat16, device=dev)
     dvf = (torch.empty((rows, ch), dtype=torch.float32, device=dev)
            if spill_pulls is not None else None)
+    index, perm = _push_scratch(spec, dev)
     pushes = torch.empty((spec.nb, ch), dtype=torch.float32, device=dev)
     T, SG, _ = spec.pairs_shape
     with torch.cuda.device(dev):
         err = lib.wh_fm_step(
             pw.data_ptr(), wpull.data_ptr(), labels.data_ptr(),
             mask.data_ptr(), _ptr(spill_pulls), partial.data_ptr(),
-            margins.data_ptr(), dvb.data_ptr(), _ptr(dvf), pushes.data_ptr(),
-            T, SG, spec.group, spec.cap, k, per_chunk, LOSS_IDS[key],
-            _stream(pw))
+            margins.data_ptr(), dvb.data_ptr(), _ptr(dvf), index.data_ptr(),
+            perm.data_ptr(), pushes.data_ptr(), T, SG, spec.group, spec.cap,
+            k, per_chunk, LOSS_IDS[key], _stream(pw))
     _ext.check(lib, err, "tile_fm_step")
     fused_fm_step.launches += 1
     if spill_pulls is not None:
@@ -1315,12 +1388,13 @@ def fused_wd_step(pw: torch.Tensor, wpull: torch.Tensor,
     if pw.device.type != "cuda":
         return fused_wd_step_plain(pw, wpull, labels, mask, mlp, spec, key)
     lib = _lib("tile_wd_step", "wh_wd_step",
-               [_P] * 6 + [_I] * 2 + [_P] * 8 + [_I] * 7 + [_P])
+               [_P] * 6 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P])
     dev, rows = pw.device, spec.block_rows
     sc = _WdScratch(mlp, sizes, rows, dev)
     partial, per_chunk = _pull_scratch(spec, k + 1, dev)
     margins = torch.empty(rows, dtype=torch.float32, device=dev)
     dvb = torch.empty((rows, k + 2), dtype=torch.bfloat16, device=dev)
+    index, perm = _push_scratch(spec, dev)
     pushes = torch.empty((spec.nb, k + 2), dtype=torch.float32, device=dev)
     T, SG, _ = spec.pairs_shape
     with torch.cuda.device(dev):
@@ -1329,8 +1403,9 @@ def fused_wd_step(pw: torch.Tensor, wpull: torch.Tensor,
             mask.data_ptr(), sc.params.data_ptr(), sc.sizes.data_ptr(),
             sc.L, sc.P, partial.data_ptr(), sc.acts.data_ptr(),
             sc.gz.data_ptr(), sc.gpart.data_ptr(), margins.data_ptr(),
-            dvb.data_ptr(), sc.grad.data_ptr(), pushes.data_ptr(), T, SG,
-            spec.group, spec.cap, k, per_chunk, LOSS_IDS[key], _stream(pw))
+            dvb.data_ptr(), sc.grad.data_ptr(), index.data_ptr(),
+            perm.data_ptr(), pushes.data_ptr(), T, SG, spec.group, spec.cap,
+            k, per_chunk, LOSS_IDS[key], _stream(pw))
     _ext.check(lib, err, "tile_wd_step")
     fused_wd_step.launches += 1
     return margins, pushes, _unpack_mlp(sc.grad, sizes)
