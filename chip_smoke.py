@@ -49,9 +49,11 @@ error:
     at ch 10, 17 and 18, ``tile_fm_step`` with and without the spill grid
     (logit and hinge), ``tile_wd_step`` and the ``fm_boundary``/
     ``wd_boundary`` launches; requires two runs bitwise equal, the fused
-    steps equal to the split chain bitwise, ``tile_pushes`` equal to its
-    order-exact plain version bitwise, and the pushes' bucket index
-    (``push_index``) equal to its plain version exactly;
+    steps equal to the split chain bitwise, ``tile_pulls`` and
+    ``tile_pushes`` equal to their order-exact plain versions bitwise, and
+    the pulls' row index (``pull_index``, also on the 2,048-tile fuse=8
+    spec) and the pushes' bucket index (``push_index``) equal to their
+    plain versions exactly;
 12. writes another spill file and ovf_cap=0 file and trains FM and
     wide&deep 2 passes with validation: through each model's ``main`` on
     the fused resolution, then in process on ``fused`` and ``split`` on both
@@ -65,8 +67,10 @@ error:
 13. times each multi-channel kernel per full-width block beside its bound
     (the pull table's bytes counted over the sectors the block reaches),
     its plain version, the split chain (fused steps) and the one-call
-    yardstick ``torch.sparse.mm`` (#4, #5), and the whole FM and wide&deep
-    train step with the dense AdaGrad update;
+    yardstick ``torch.sparse.mm`` (#4, #5), the device time of each launch
+    of ``tile_pulls`` (its row index and its segmented sum apart, with
+    ``torch.profiler``), and the whole FM and wide&deep train step with the
+    dense AdaGrad update;
 14. prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
     as the last line ``{"ok": true, "device": {...}}``.
 
@@ -163,6 +167,21 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
         torch.cuda.synchronize()
         ts.append(e0.elapsed_time(e1) / inner)
     return float(np.median(ts))
+
+
+def launch_ms(torch, fn, reps: int = 10) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by kernel
+    name, from ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
 
 
 def table_bytes(torch, bucket, width: int) -> int:
@@ -313,12 +332,13 @@ def flip_tol(torch, keys, idx, a, b, n):
                        device=a.device).index_add_(0, keys, d[idx])
 
 
-def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
-    """#4 and #5 at ch 10, 17 and 18 (#5 and its bucket index bitwise
-    equal to their plain versions), fused_fm_step with and without spill
-    and fused_wd_step at full width: against their plain versions, two runs
-    bitwise equal, fused = split chain bitwise. Records the largest error
-    per kernel in ``errs``."""
+def multi_kernel_checks(torch, tt, spec, blocks, many, rng, dev, errs):
+    """#4 and #5 at ch 10, 17 and 18 (each, and its row or bucket index,
+    bitwise equal to its plain version), fused_fm_step with and without
+    spill and fused_wd_step at full width: against their plain versions,
+    two runs bitwise equal, fused = split chain bitwise; and #4's row index
+    and its pulls at ch 1 on ``many``, a (pw, spec) of 2,048 tiles.
+    Records the largest error per kernel in ``errs``."""
     rows, nb = spec.block_rows, spec.nb
     labels = torch.from_numpy((rng.random(rows) < 0.25).astype(
         np.float32)).to(dev)
@@ -337,14 +357,17 @@ def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
             (None, None)
         bucket, row, valid = tt.decode_pairs(pw, spec)
         kb, kr = bucket[valid], row[valid]
-        start, perm = tt.push_index(pw, spec)
-        ps, pp = tt.push_index_plain(pw, spec)
-        require(torch.equal(start, ps) and torch.equal(perm, pp),
-                f"push_index {kind}: the bucket index differs from its "
-                "plain version")
-        print(f"push_index {kind}: {perm.numel()} words in "
-              f"{int((ps[1:] > ps[:-1]).sum())} buckets, = plain exactly")
-        del start, perm, ps, pp
+        for name, build, plain_build in (
+                ("push_index", tt.push_index, tt.push_index_plain),
+                ("pull_index", tt.pull_index, tt.pull_index_plain)):
+            start, perm = build(pw, spec)
+            ps, pp = plain_build(pw, spec)
+            require(torch.equal(start, ps) and torch.equal(perm, pp),
+                    f"{name} {kind}: the index differs from its plain "
+                    "version")
+            print(f"{name} {kind}: {perm.numel()} words in "
+                  f"{int((ps[1:] > ps[:-1]).sum())} keys, = plain exactly")
+            del start, perm, ps, pp
         for ch in (10, 17, 18):
             w = f32(rng.standard_normal((nb, ch)) * 0.1)
             a = tt.forward_pulls(pw, w, spec, *spill)
@@ -355,9 +378,11 @@ def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
             err = (a.double() - plain.double()).abs()
             require(torch.equal(a, b), f"tile_pulls {kind} ch {ch}: runs "
                     "differ")
-            require(bool(torch.all(err <= chan_tol(torch, kr, kb, w, rows)
-                                   + 2.0 ** -23 * plain.double().abs())),
-                    f"tile_pulls {kind} ch {ch}: vs plain {err.max():.3e}")
+            # both sum each (row, channel) from 0 in word order
+            require(torch.equal(a, plain), f"tile_pulls {kind} ch {ch}: "
+                    f"not bitwise equal to the order-exact plain version "
+                    f"({int((a != plain).sum())} entries differ, largest "
+                    f"{err.max():.3e})")
             note("tile_pulls", err.max())
             dv = f32(rng.standard_normal((rows, ch)) * 0.4)
             a = tt.backward_pushes(pw, dv, spec, *spill)
@@ -376,10 +401,9 @@ def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
                     f"not bitwise equal to the order-exact plain version "
                     f"({int((a != plain).sum())} entries differ)")
             note("tile_pushes", err2.max())
-            print(f"tile_pulls/tile_pushes {kind} ch {ch}: max |kernel - "
-                  f"plain| {err.max():.3e} / {err2.max():.3e} (per (row or "
-                  f"bucket, channel) 4*n*2^-24*sum|bf16 x|), pushes = plain "
-                  f"bitwise, bitwise repeat ok")
+            print(f"tile_pulls/tile_pushes {kind} ch {ch}: = order-exact "
+                  f"plain bitwise (max |kernel - plain| {err.max():.3e} / "
+                  f"{err2.max():.3e}), bitwise repeat ok")
             del a, b, plain, err, err2, w, dv
         # the FM step (k 8, 10 channels), with the spill grid on the spill
         # block
@@ -438,6 +462,24 @@ def multi_kernel_checks(torch, tt, spec, blocks, rng, dev, errs):
                   f"same pulls {berr:.3e} (tolerance 1e-5)")
             del f1, f2, pulls, pulls_p, ms, dvs, dvp, gs, p, ptol, gtol
         del wf, v, sp
+    # the row index over many tiles (80 tiles a run, 26 runs a subblock)
+    pw, spec_m = many
+    start, perm = tt.pull_index(pw, spec_m)
+    ps, pp = tt.pull_index_plain(pw, spec_m)
+    require(torch.equal(start, ps) and torch.equal(perm, pp),
+            f"pull_index {spec_m.tiles} tiles: the index differs from its "
+            "plain version")
+    # a table that draws nothing from rng, so later phases see the inputs
+    # they saw before this check
+    w = f32(np.sin(np.arange(spec_m.nb, dtype=np.float64))[:, None] * 0.1)
+    require(torch.equal(tt.forward_pulls(pw, w, spec_m),
+                        tt.forward_pulls_plain(pw, w, spec_m)),
+            f"tile_pulls {spec_m.tiles} tiles ch 1: not bitwise equal to "
+            "the order-exact plain version")
+    print(f"pull_index {spec_m.tiles} tiles (cap {spec_m.cap}): "
+          f"{perm.numel()} words, = plain exactly; tile_pulls ch 1 = plain "
+          "bitwise")
+    del start, perm, ps, pp, w
     # the wide&deep step (k 16, hidden 64,32) on the spill-free block
     pw = blocks["uniform"]["pw"]
     bucket, row, valid = tt.decode_pairs(pw, spec)
@@ -1032,6 +1074,21 @@ def multi_timing(torch, tt, spec, blocks, rng, dev, smi, launches, errs):
                    lambda: torch.sparse.mm(csr_f, wb),
                    pw_b + reach(ch_in) + rows * ch_in * 4,
                    n_pairs * ch_in, note=f" ch {ch_in}")
+        per = launch_ms(torch, lambda: tt.forward_pulls(pw, w, spec))
+        parts = {p_: sum(v for k_, v in per.items() if p_ in k_)
+                 for p_ in ("pull_counts", "pull_row_prefix", "pull_index",
+                            "pull_segsum")}
+        if sum(parts.values()) > 0:
+            print(f"tile_pulls ch {ch_in} launches (torch.profiler device "
+                  f"ms per call): row index "
+                  f"{sum(parts.values()) - parts['pull_segsum']:.4f} ("
+                  + ", ".join(f"{k_} {v:.4f}" for k_, v in parts.items()
+                              if k_ != "pull_segsum")
+                  + f"), segmented sum {parts['pull_segsum']:.4f}  card "
+                  f"{smi}")
+        else:
+            print(f"tile_pulls ch {ch_in} launches: not measured (the "
+                  "profiler reported no device time)")
         e2 = entry("tile_pushes", "tile_multi.cu",
                    "wormhole_tpu/ops/tilemm.py:741",
                    lambda: tt.backward_pushes(pw, dv, spec),
@@ -1674,7 +1731,7 @@ def main() -> int:
           f"plain {p8:.4f} ms  sparse.mm of the transposed CSR {l8:.4f} ms"
           f"  bound {max(b8 / PEAK_BYTES_S, n8 / PEAK_F32_S) * 1e3:.4f} ms "
           f"({b8 / 1e6:.2f} MB)  card {smi}")
-    del csr8, d8col, dual8, pw8
+    del csr8, d8col, dual8
     sl = slots0.clone()
     g_t = tt.backward_grad(pw, dual, spec)
     m_t = tt.forward_margins(pw, wd, spec)
@@ -1753,7 +1810,9 @@ def main() -> int:
     t0 = phase("multi-channel kernels vs plain at full width")
     blocks = {"uniform": uniform_block, "spill": spill_block}
     merrs: dict = {}
-    multi_kernel_checks(torch, tt, spec, blocks, rng, dev, merrs)
+    multi_kernel_checks(torch, tt, spec, blocks, (pw8, spec8), rng, dev,
+                        merrs)
+    del pw8
     print(f"phase {time.perf_counter() - t0:.1f} s")
 
     # -- 12. FM and wide&deep training through main ------------------------------

@@ -6,11 +6,12 @@ one NVIDIA GPU.
 
 Builds the kernels, makes one full-width criteo block (2^22 buckets, 39 keys
 per row, 98,304 rows) from ``--seed``, and reads with ``torch.profiler``
-the device time per call of every launch of ``backward_pushes`` alone at
-ch 10 and ch 18 (the FM and wide&deep push widths: the bf16 rounding, the
-bucket index's two launches and the segmented sum apart), ``fused_fm_step``
-(dim 8), ``fused_wd_step`` (dim 16, hidden 64,32), and the whole store
-train steps
+the device time per call of every launch of ``forward_pulls`` alone at
+ch 10 and ch 17 (the FM and wide&deep pull widths: the row index's three
+launches and the segmented sum apart), of ``backward_pushes`` alone at
+ch 10 and ch 18 (the push widths: the bf16 rounding, the bucket index's two
+launches and the segmented sum apart), ``fused_fm_step`` (dim 8),
+``fused_wd_step`` (dim 16, hidden 64,32), and the whole store train steps
 ``FMStore.tile_train_step`` and ``WideDeepStore.tile_train_step`` (the
 fused step, then the dense torch AdaGrad update of the table and the MLP,
 and the metric row). Prints the card's name and power limit. Needs CUDA and
@@ -72,10 +73,14 @@ def main() -> int:
     wf = torch.cat([fs.slots[:, :9], torch.sum(fs.slots[:, 1:9] ** 2, 1,
                                                keepdim=True)], 1)
     ww = ws.slots[:, :17].contiguous()
+    wt = {10: wf, 17: ww}
     dvs = {ch: torch.from_numpy((rng.standard_normal((rows, ch)) * 0.4)
                                 .astype(np.float32)).to(dev)
            for ch in (10, 18)}
     cases = [
+        (f"forward_pulls (ch {ch})",
+         lambda ch=ch: tt.forward_pulls(pw, wt[ch], spec))
+        for ch in (10, 17)] + [
         (f"backward_pushes (ch {ch})",
          lambda ch=ch: tt.backward_pushes(pw, dvs[ch], spec))
         for ch in (10, 18)] + [

@@ -12,8 +12,9 @@ gradient's is the same bound over each bucket's bf16 duals. The FTRL slots
 after a step are held to the plain version within 1e-5·(1 + |x|): they
 start from the same gradient up to that bound, and the update adds a few
 f32 roundings (the CPU tests derive the full per-slot bound). The
-multi-channel pushes and their plain version both sum each (bucket,
-channel) in word order, so they are held to bitwise equality.
+multi-channel pulls and pushes and their plain versions all sum each (row
+or bucket, channel) in word order, so they are held to bitwise equality,
+and so are the row and bucket indexes they build.
 """
 
 import os
@@ -380,16 +381,6 @@ def multi_counts():
     return [f.launches for f in MULTI]
 
 
-def chan_tol(keys, idx, vals, n):
-    """Per (key, channel) 4·n·2⁻²⁴·Σ|bf16 value| over the key's pairs."""
-    vb = np.abs(torch.from_numpy(np.ascontiguousarray(vals, np.float32))
-                .bfloat16().double().numpy())
-    tol = np.stack([np.bincount(keys, weights=vb[idx, c], minlength=n)
-                    for c in range(vals.shape[1])], 1)
-    cnt = np.bincount(keys, minlength=n)
-    return 4 * np.maximum(cnt, 1)[:, None] * 2.0 ** -24 * tol + 1e-30
-
-
 def multi_operands(seed, device, skew=False, k=4, hidden=(8,)):
     o = step_operands(seed, device, skew)
     rng = np.random.default_rng(seed + 7)
@@ -425,13 +416,9 @@ def test_pulls_and_pushes_match_plain_and_repeat(cuda, ch, skew):
     torch.cuda.synchronize()
     assert np.subtract(multi_counts(), before).tolist() == [2, 2, 0, 0, 0, 0]
     assert torch.equal(a, b) and torch.equal(ga, gb)
-    bucket, row, valid = tt.decode_pairs(o["pw"].cpu(), SPEC)
-    kb, kr = bucket[valid].numpy(), row[valid].numpy()
-    pp = tt.forward_pulls_plain(o["pw"], wd, SPEC).cpu().numpy()
-    assert np.all(np.abs(a.cpu().numpy() - pp)
-                  <= chan_tol(kr, kb, w, SPEC.block_rows))
-    # the pushes sum each (bucket, channel) in word order, as the plain
-    # version does: equal bit for bit
+    # the kernels sum each (row or bucket, channel) in word order, as the
+    # plain versions do: equal bit for bit
+    assert torch.equal(a, tt.forward_pulls_plain(o["pw"], wd, SPEC))
     assert torch.equal(ga, tt.backward_pushes_plain(o["pw"], dvd, SPEC))
 
 
@@ -470,6 +457,90 @@ def test_push_index_kernel_equals_plain(cuda, case):
         (spec.block_rows, 3)).astype(np.float32)).to(cuda)
     assert torch.equal(tt.backward_pushes(pw, dv, spec),
                        tt.backward_pushes_plain(pw, dv, spec))
+
+
+# 256 tiles of 256 words: the pulls' row index splits each subblock's tiles
+# into two runs (160 and 96 tiles), one CTA each
+MANY = tt.TileSpec(nb=256 * tt.TILE, subblocks=2, cap=128, group=2,
+                   tiles_step=2)
+# 22,528 words a (tile, subblock) segment: a pulls index CTA places them in
+# two windows
+TWO = tt.TileSpec(nb=2 * tt.TILE, subblocks=2, cap=22528, group=2,
+                  tiles_step=2)
+
+
+def index_block(case, device):
+    """(pw, spec) of the pull index cases."""
+    rng = np.random.default_rng(69)
+    if case in ("uniform", "skew"):
+        return step_operands(69, device, case == "skew")["pw"], SPEC
+    if case == "wide":          # one tile a run, one window
+        spec = WIDE
+        buckets = rng.integers(0, spec.nb, size=30000)
+        rows = rng.integers(0, spec.block_rows, size=30000)
+        buckets[:11000] = rng.integers(0, tt.TILE, 11000)
+        rows[:11000] = rng.integers(tt.RSUB, 2 * tt.RSUB, 11000)
+    elif case == "many_tiles":
+        spec = MANY
+        buckets = rng.integers(0, spec.nb, size=20000)
+        rows = rng.integers(0, spec.block_rows, size=20000)
+    else:                       # two windows, 64 rows in both
+        spec = TWO
+        buckets = rng.integers(0, spec.nb, size=30000)
+        rows = rng.integers(0, spec.block_rows, size=30000)
+        buckets[:21000] = rng.integers(0, tt.TILE, 21000)
+        rows[:21000] = rng.integers(tt.RSUB, tt.RSUB + 64, 21000)
+    pw = tt.encode_block_capped(buckets, rows, spec, 64)[0]
+    return as_i32(pw, device), spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "skew", "wide", "many_tiles",
+                                  "two_windows"])
+def test_pull_index_kernel_equals_plain(cuda, case):
+    """The pulls' row index built on the card (row starts, and each row's
+    table rows in word order) equals pull_index_plain exactly, and the
+    pulls over it equal the plain version bitwise (a channel a thread at
+    ch 3, a pair at ch 6)."""
+    pw, spec = index_block(case, cuda)
+    before = tt.pull_index.launches
+    start, perm = tt.pull_index(pw, spec)
+    torch.cuda.synchronize()
+    assert tt.pull_index.launches == before + 1
+    ps, pp = tt.pull_index_plain(pw, spec)
+    assert torch.equal(start, ps) and torch.equal(perm, pp)
+    for ch in (3, 6):
+        w = torch.from_numpy(np.random.default_rng(ch).standard_normal(
+            (spec.nb, ch)).astype(np.float32)).to(cuda)
+        assert torch.equal(tt.forward_pulls(pw, w, spec),
+                           tt.forward_pulls_plain(pw, w, spec))
+
+
+@pytest.mark.cuda
+def test_pulls_do_not_assume_row_order_within_a_segment(cuda):
+    """A block whose segments are shuffled within (pad words included): the
+    row index, the pulls and the pushes equal their plain versions bitwise,
+    and the fused FM step equals the split chain."""
+    o = multi_operands(75, cuda)
+    T, SG, _ = SPEC.pairs_shape
+    seg = o["pw"].cpu().numpy().reshape(T, SG, SPEC.group, SPEC.cap)
+    rng = np.random.default_rng(76)
+    for t, g, j in np.ndindex(seg.shape[:3]):
+        seg[t, g, j] = rng.permutation(seg[t, g, j])
+    pw = as_i32(seg.reshape(SPEC.pairs_shape), cuda)
+    assert not torch.equal(pw, o["pw"])
+    start, perm = tt.pull_index(pw, SPEC)
+    ps, pp = tt.pull_index_plain(pw, SPEC)
+    assert torch.equal(start, ps) and torch.equal(perm, pp)
+    W, k = o["fm_w"], o["k"]
+    pulls = tt.forward_pulls(pw, W, SPEC)
+    assert torch.equal(pulls, tt.forward_pulls_plain(pw, W, SPEC))
+    ms, dvs = tt.fm_boundary(pulls, o["labels"], o["mask"], k, "logit")
+    gs = tt.backward_pushes(pw, dvs, SPEC)
+    assert torch.equal(gs, tt.backward_pushes_plain(pw, dvs, SPEC))
+    mf, gf = tt.fused_fm_step(pw, W, o["labels"], o["mask"], SPEC, k,
+                              "logit")
+    assert torch.equal(mf, ms) and torch.equal(gf, gs)
 
 
 @pytest.mark.cuda
@@ -542,13 +613,26 @@ def test_fused_wd_step_equals_split_bitwise_on_cuda(cuda, hidden):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["table_cpu", "table_1d", "dvals_shape",
-                                 "fm_width", "mlp_width", "push_scratch"])
+                                 "fm_width", "mlp_width", "push_scratch",
+                                 "pull_scratch"])
 def test_multi_kernels_reject_bad_cuda_operands(cuda, bad):
     o = multi_operands(90, cuda)
     before = multi_counts()
-    exc = RuntimeError if bad == "push_scratch" else (TypeError, ValueError)
+    exc = (RuntimeError if bad.endswith("_scratch")
+           else (TypeError, ValueError))
     with pytest.raises(exc):
-        if bad == "push_scratch":   # the pushes' index scratch left out
+        if bad == "pull_scratch":   # the pulls' index scratch left out
+            lib = tt._lib("tile_multi", "wh_tile_pulls",
+                          [tt._P] * 5 + [tt._I] * 6 + [tt._P])
+            ch = o["fm_w"].shape[1]
+            out = torch.empty((SPEC.block_rows, ch), device=cuda)
+            T, SG, _ = SPEC.pairs_shape
+            err = lib.wh_tile_pulls(o["pw"].data_ptr(), o["fm_w"].data_ptr(),
+                                    None, None, out.data_ptr(), T, SG,
+                                    SPEC.group, SPEC.cap, ch, 1,
+                                    tt._stream(o["pw"]))
+            _ext.check(lib, err, "tile_pulls")
+        elif bad == "push_scratch":   # the pushes' index scratch left out
             lib = tt._lib("tile_multi", "wh_tile_pushes",
                           [tt._P] * 6 + [tt._I] * 5 + [tt._P])
             dv = torch.zeros((SPEC.block_rows, 3), device=cuda)

@@ -141,7 +141,7 @@ def test_backward_pushes_matches_jax(ch, spill):
     assert np.count_nonzero(got.numpy()[:, 0]) > 0.9 * len(np.unique(kb))
 
 
-# -- the pushes' bucket index and the order-exact plain pushes ----------------
+# -- the row and bucket indexes and the order-exact plain pulls and pushes ---
 
 def word_order_pairs(pw):
     """(bucket, row) int64 of the valid words in word order: (tile, group,
@@ -185,14 +185,63 @@ def test_push_index_plain_is_a_stable_bucket_sort(spill):
         assert np.diff(st).max() > 100
 
 
-def word_order_fold(pw, dv):
-    """pushes by a Python loop: each word's bf16 value row added into its
-    bucket in f32, from 0, one word at a time in word order."""
-    out = np.zeros((SPEC.nb, dv.shape[1]), np.float32)
-    vb = bf16(dv).astype(np.float32)
-    for b, r in zip(*word_order_pairs(pw)):
-        out[b] = out[b] + vb[r]
+@pytest.mark.parametrize("spill", [False, True])
+def test_pull_index_plain_is_a_stable_row_sort(spill):
+    """start is monotone from 0, its counts are the bincount of the valid
+    words' block rows, and each row's entries are its words' table rows
+    t*16384 + bucket in word order; the wrapper takes the plain path on a
+    CPU tensor and counts no launch."""
+    pw, _, _, _ = block(89, skew=spill)
+    before = tt.pull_index.launches
+    start, perm = tt.pull_index(i32(pw), SPEC)
+    assert tt.pull_index.launches == before
+    want = tt.pull_index_plain(i32(pw), SPEC)
+    assert torch.equal(start, want[0]) and torch.equal(perm, want[1])
+    assert start.dtype == perm.dtype == torch.int32
+    assert start.shape == (SPEC.block_rows + 1,)
+    st = start.numpy().astype(np.int64)
+    kb, kr = word_order_pairs(pw)
+    assert st[0] == 0 and np.all(np.diff(st) >= 0)
+    assert np.array_equal(np.diff(st),
+                          np.bincount(kr, minlength=SPEC.block_rows))
+    assert st[-1] == len(kr) == perm.numel()
+    for r in np.unique(kr):
+        assert np.array_equal(perm.numpy()[st[r]:st[r + 1]], kb[kr == r])
+    if spill:   # the hot bucket's words spread over many rows
+        assert np.count_nonzero(perm.numpy() == 7 * tt.TILE // 4) > 100
+
+
+def word_order_fold(keys, others, vals, n):
+    """Sums by a Python loop: each word's bf16 value row (vals[other])
+    added into its key in f32, from 0, one word at a time in word order."""
+    out = np.zeros((n, vals.shape[1]), np.float32)
+    vb = bf16(vals).astype(np.float32)
+    for k, o in zip(keys, others):
+        out[k] = out[k] + vb[o]
     return out
+
+
+@pytest.mark.parametrize("ch", [1, 10, 17])
+@pytest.mark.parametrize("spill", [False, True])
+def test_forward_pulls_plain_sums_in_word_order_bitwise(ch, spill):
+    """The order-exact plain pulls equal a Python word-order fold, and the
+    single index_add_ over all words that the CPU ran before (it adds in
+    index order too), bit for bit; with spill, forward_pulls adds the spill
+    pulls to exactly these bits."""
+    pw, ob, orow, _ = block(88 + ch, skew=spill)
+    w = (np.random.default_rng(87).standard_normal((SPEC.nb, ch))
+         * 0.3).astype(np.float32)
+    got = tt.forward_pulls_plain(i32(pw), f32(w), SPEC)
+    kb, kr = word_order_pairs(pw)
+    assert got.numpy().tobytes() == word_order_fold(
+        kr, kb, w, SPEC.block_rows).tobytes()
+    bucket, row, valid = tt.decode_pairs(i32(pw), SPEC)
+    one_call = torch.zeros((SPEC.block_rows, ch)).index_add_(
+        0, row[valid], f32(w).to(torch.bfloat16).float()[bucket[valid]])
+    assert torch.equal(got, one_call)
+    sp = (i32(ob), i32(orow)) if spill else (None, None)
+    want = got + tt.spill_pull_rows(f32(w), *sp, SPEC) if spill else got
+    assert torch.equal(tt.forward_pulls(i32(pw), f32(w), SPEC, *sp), want)
 
 
 @pytest.mark.parametrize("ch", [1, 10, 18])
@@ -205,7 +254,9 @@ def test_backward_pushes_plain_sums_in_word_order_bitwise(ch, spill):
     dv = (np.random.default_rng(92).standard_normal((SPEC.block_rows, ch))
           * 0.5).astype(np.float32)
     got = tt.backward_pushes_plain(i32(pw), f32(dv), SPEC)
-    assert got.numpy().tobytes() == word_order_fold(pw, dv).tobytes()
+    kb, kr = word_order_pairs(pw)
+    assert got.numpy().tobytes() == word_order_fold(kb, kr, dv,
+                                                    SPEC.nb).tobytes()
     bucket, row, valid = tt.decode_pairs(i32(pw), SPEC)
     one_call = torch.zeros((SPEC.nb, ch)).index_add_(
         0, bucket[valid], f32(dv).to(torch.bfloat16).float()[row[valid]])
@@ -502,13 +553,17 @@ def test_multi_wrappers_take_the_plain_path_only_on_cpu():
     """On CPU tensors every multi-channel wrapper runs its plain version
     and counts no launch; a bad operand raises before any launch."""
     counted = (tt.forward_pulls, tt.backward_pushes, tt.fm_boundary,
-               tt.wd_boundary, tt.fused_fm_step, tt.fused_wd_step)
+               tt.wd_boundary, tt.fused_fm_step, tt.fused_wd_step,
+               tt.pull_index, tt.push_index)
     before = [f.launches for f in counted]
     pw, _, _, _ = block(100)
     P, W = i32(pw), f32(fm_table(101))
     labels, mask = (f32(a) for a in row_data(102))
     assert torch.equal(tt.forward_pulls(P, W, SPEC),
                        tt.forward_pulls_plain(P, W, SPEC))
+    for got, want in zip(tt.pull_index(P, SPEC),
+                         tt.pull_index_plain(P, SPEC)):
+        assert torch.equal(got, want)
     m, push = tt.fused_fm_step(P, W, labels, mask, SPEC, K, "logit")
     mp, pp = tt.fused_fm_step_plain(P, W, labels, mask, SPEC, K, "logit")
     assert torch.equal(m, mp) and torch.equal(push, pp)

@@ -6,55 +6,45 @@
 //     pallas_call :811): wh_tile_pulls, the pooled pulls (rows, ch);
 //   - `_bwd_multi_kernel` (:741, built by `_build_bwd_multi` :832,
 //     pallas_call :844): wh_tile_pushes, the channel pushes (nb, ch).
-// The device code and its design (the pulls' channel groups and chunk
-// count, the pushes' bucket index and segmented sum) live in
-// tile_multi.cuh, which the fused FM and wide&deep steps share, so split and
-// fused sum alike.
+// The device code and its design (for each, a CSR index of the block's
+// words, by row for the pulls and by bucket for the pushes, and one
+// segmented sum over all channels) live in tile_multi.cuh, which the fused
+// FM and wide&deep steps share, so split and fused sum alike.
 //
 // What bounds them: bytes. Per full-width criteo block (2^22 buckets,
-// 98,304 rows) the pulls must read the pair words (17.3 MB) and the (nb, ch)
-// f32 table once (168 MB at ch 10) and write (rows, ch) f32 (3.9 MB); the
-// pushes read the words and the (rows, ch) values and write (nb, ch) f32
-// (302 MB at ch 18). The TPU ran both as one-hot MXU matmuls, one channel
-// block of lanes each; Hopper gathers and scatters directly.
-//
-// The pulls are still the simple first kernel: each channel group re-reads
-// the words, and the chunk slabs add a (S, nchunk, 8192, ch) f32 round
-// trip. The pushes read the words three times and add the index's scratch
-// (perm and start, about 35 MB at full width) to the bytes above.
+// 98,304 rows) the pulls must read the pair words (17.3 MB), the sectors of
+// the (nb, ch) f32 table the block reaches (about 119 MB at ch 10) and
+// write (rows, ch) f32 (3.9 MB); the pushes read the words and the (rows,
+// ch) values and write (nb, ch) f32 (302 MB at ch 18). The TPU ran both as
+// one-hot MXU matmuls, one channel block of lanes each; Hopper gathers
+// directly, through the index. Each index reads the words a few times and
+// writes its perm (one int32 per valid word) and starts: that, and the
+// table sectors a gather fetches more than once, are the extra traffic.
 
 #include "tile_multi.cuh"
-
-namespace {
-
-__global__ void tile_pulls_combine(const float* __restrict__ partial,
-                                   float* __restrict__ pulls, long long n,
-                                   int nchunk, int ch) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  pulls[e] = wh::pulls_combine(partial, e / ch, (int)(e % ch), nchunk, ch);
-}
-
-}  // namespace
 
 extern "C" {
 
 // pulls (S*8192, ch) f32 from pw (T, SG, GS*C) i32 and w (T*16384, ch) f32
-// (rounded to bf16 in the kernel). partial is scratch of (S, nchunk, 8192,
-// ch) f32 with nchunk = ceil(T / tiles_per_chunk). Returns
-// cudaGetLastError() after each launch (0 = success).
-int wh_tile_pulls(const int32_t* pw, const float* w, float* partial,
+// (rounded to bf16 in the kernel). index (S*8192 + 1 + S*nrun*8192 +
+// S*8192/1024) and perm (T*SG*GS*C) int32 are scratch for the row index,
+// nrun = ceil(T / tiles_per_run). Returns cudaGetLastError() after each
+// launch (0 = success), cudaErrorInvalidValue for a null scratch.
+int wh_tile_pulls(const int32_t* pw, const float* w, int* index, int* perm,
                   float* pulls, int T, int SG, int GS, int C, int ch,
-                  int tiles_per_chunk, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = wh::launch_pulls_partial(pw, w, partial, T, SG, GS, C, ch,
-                                     tiles_per_chunk, st);
-  if (err != 0) return err;
-  const int nchunk = (T + tiles_per_chunk - 1) / tiles_per_chunk;
-  const long long n = (long long)SG * GS * wh::RSUB * ch;
-  tile_pulls_combine<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      partial, pulls, n, nchunk, ch);
-  return (int)cudaGetLastError();
+                  int tiles_per_run, void* stream) {
+  return wh::launch_pulls_tile(pw, w, index, perm, pulls, T, SG, GS, C, ch,
+                               tiles_per_run,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The pulls' row index alone (a CSR of pw's valid words by block row):
+// index[0..S*8192] the row starts, perm[start[r]..start[r+1]) row r's table
+// rows t*16384 + bucket in word order.
+int wh_pull_index(const int32_t* pw, int* index, int* perm, int T, int SG,
+                  int GS, int C, int tiles_per_run, void* stream) {
+  return wh::launch_pull_index(pw, index, perm, T, SG, GS, C, tiles_per_run,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // pushes (T*16384, ch) f32 from pw and the f32 value rows (S*8192, ch),

@@ -9,10 +9,11 @@
 // agree bitwise (slots, MLP, accumulators, metrics).
 //
 // The phases are back-to-back launches on one stream:
-//   1. tile_pulls_partial (tile_multi.cuh) over ch_in = 1+k channels
-//      [w, v_1..v_k];
-//   2. wd_rows: one thread per row combines its pulls, runs the MLP
-//      forward (h @ W + b, ReLU between layers; deep = the one output),
+//   1. the pulls (tile_multi.cuh launch_pulls_tile: the row index, then one
+//      segmented sum) over ch_in = 1+k channels [w, v_1..v_k] into a (rows,
+//      1+k) f32 grid, each (row, channel) summed in word order;
+//   2. wd_rows: one thread per row reads its pulls, runs the MLP forward
+//      (h @ W + b, ReLU between layers; deep = the one output),
 //      margin = wide + deep, the dual, and the vjp down to the pooled
 //      input. It writes the bf16 push grid [dual, g_pooled_1..k, mask]
 //      and keeps every layer's input activation and output cotangent, in
@@ -21,16 +22,18 @@
 //      Σ_rows activation·cotangent, as per-chunk partial sums over 512-row
 //      chunks, then one fixed-order combine: deterministic, no atomics;
 //   4. the pushes (tile_multi.cuh launch_pushes_tile: the bucket index,
-//      then one segmented sum) over ch_out = k+2 channels.
+//      then one segmented sum) over ch_out = k+2 channels; the bucket index
+//      reuses the pulls' perm buffer, dead once phase 1 has run.
 // The weights sit in shared memory when they fit in 48 KB (3,201 floats,
 // 12.8 KB, at k 16 and hidden (64, 32)); otherwise the kernels read them
 // through L2. Any hidden widths run; there is no size-based fallback.
 //
 // What bounds it: bytes. Per full-width block at k = 16: the words twice,
-// the (nb, 17) f32 pull table (285 MB) and the (nb, 18) f32 pushes (302 MB).
-// The MLP is about 1.8 GFLOP per 98,304-row block for forward and backward,
-// 0.027 ms at the f32 peak; its activation scratch is this design's extra
-// traffic.
+// the sectors of the (nb, 17) f32 pull table (285 MB) the block reaches and
+// the (nb, 18) f32 pushes (302 MB). The MLP is about 1.8 GFLOP per
+// 98,304-row block for forward and backward, 0.027 ms at the f32 peak. The
+// two indexes, the pulls grid and the MLP's activation scratch are this
+// design's extra traffic.
 
 #include "tile_math.cuh"
 #include "tile_multi.cuh"
@@ -216,30 +219,31 @@ extern "C" {
 // GS*C) i32, the pull table w (T*16384, 1+k) f32, the f32 labels/mask rows
 // and the flat f32 MLP parameters [W0, b0, W1, b1, ...] (P floats) with
 // layer sizes `sizes` (L+1 device ints, sizes[0] = k, sizes[L] = 1).
-// Scratch: partial (S, nchunk, 8192, 1+k) f32, acts (Σ_{l<L} s_l, rows)
-// f32, gz (Σ_{l<L} s_{l+1}, rows) f32, gpart (ceil(rows/512), P) f32,
-// dvb (rows, k+2) bf16, and the pushes' bucket index: index (T*16384 + 1 +
-// T) and perm (T*SG*GS*C) int32. Returns cudaGetLastError() after each
-// launch.
+// Scratch: the pulls' row index pull_index (S*8192 + 1 + S*nrun*8192 +
+// S*8192/1024, nrun = ceil(T / tiles_per_run)) and the pushes' bucket index
+// push_index (T*16384 + 1 + T) int32, one perm (T*SG*GS*C) int32 for both,
+// pulls (S*8192, 1+k) f32, acts (Σ_{l<L} s_l, rows) f32, gz (Σ_{l<L}
+// s_{l+1}, rows) f32, gpart (ceil(rows/512), P) f32 and dvb (rows, k+2)
+// bf16. Returns cudaGetLastError() after each launch, cudaErrorInvalidValue
+// for a null scratch.
 int wh_wd_step(const int32_t* pw, const float* w, const float* labels,
                const float* mask, const float* params, const int* sizes,
-               int L, int P, float* partial, float* acts, float* gz,
-               float* gpart, float* margins, __nv_bfloat16* dvb,
-               float* gparams, int* index, int* perm, float* pushes, int T,
-               int SG, int GS, int C, int k, int tiles_per_chunk, int loss,
-               void* stream) {
+               int L, int P, int* pull_index, float* pulls, float* acts,
+               float* gz, float* gpart, float* margins, __nv_bfloat16* dvb,
+               float* gparams, int* push_index, int* perm, float* pushes,
+               int T, int SG, int GS, int C, int k, int tiles_per_run,
+               int loss, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = wh::launch_pulls_partial(pw, w, partial, T, SG, GS, C, k + 1,
-                                     tiles_per_chunk, st);
+  int err = wh::launch_pulls_tile(pw, w, pull_index, perm, pulls, T, SG, GS,
+                                  C, k + 1, tiles_per_run, st);
   if (err != 0) return err;
-  const int nchunk = (T + tiles_per_chunk - 1) / tiles_per_chunk;
   const long long rows = (long long)SG * GS * wh::RSUB;
-  err = boundary(wh::PartialPulls{partial, nullptr, nchunk, k + 1}, labels,
-                 mask, params, sizes, L, P, acts, gz, gpart, margins, dvb,
-                 nullptr, gparams, rows, loss, 1, st);
+  err = boundary(wh::RowPulls{pulls, nullptr, k + 1}, labels, mask, params,
+                 sizes, L, P, acts, gz, gpart, margins, dvb, nullptr,
+                 gparams, rows, loss, 1, st);
   if (err != 0) return err;
-  return wh::launch_pushes_tile(pw, dvb, index, perm, pushes, T, SG, GS, C,
-                                k + 2, st);
+  return wh::launch_pushes_tile(pw, dvb, push_index, perm, pushes, T, SG, GS,
+                                C, k + 2, st);
 }
 
 // The boundary alone from (rows, 1+k) f32 pulls: margins, and with
@@ -249,9 +253,10 @@ int wh_wd_boundary(const float* pulls, const float* labels,
                    int L, int P, int k, float* acts, float* gz, float* gpart,
                    float* margins, float* dvf, float* gparams,
                    long long rows, int loss, int want_grad, void* stream) {
-  return boundary(wh::RowPulls{pulls, k + 1}, labels, mask, params, sizes, L,
-                  P, acts, gz, gpart, margins, nullptr, dvf, gparams, rows,
-                  loss, want_grad, static_cast<cudaStream_t>(stream));
+  return boundary(wh::RowPulls{pulls, nullptr, k + 1}, labels, mask, params,
+                  sizes, L, P, acts, gz, gpart, margins, nullptr, dvf,
+                  gparams, rows, loss, want_grad,
+                  static_cast<cudaStream_t>(stream));
 }
 
 const char* wh_error_string(int err) {

@@ -24,8 +24,8 @@ hand-written kernels from ``csrc/`` on a CUDA tensor:
 The multi-channel ops of the FM and wide&deep models (``models/``):
 
 - ``forward_pulls`` / ``backward_pushes`` → ``tile_multi.cu`` (the (rows,
-  ch) pooled pulls and the (nb, ch) channel pushes; ``push_index`` runs
-  the pushes' bucket index alone);
+  ch) pooled pulls and the (nb, ch) channel pushes; ``pull_index`` and
+  ``push_index`` run their row and bucket indexes alone);
 - ``fused_fm_step`` → ``tile_fm_step.cu`` (pulls, the FM margin, dual and
   push channels, pushes), with ``fm_boundary`` its boundary math alone;
 - ``fused_wd_step`` → ``tile_wd_step.cu`` (pulls, the MLP forward and vjp,
@@ -856,29 +856,36 @@ fused_step_update.launches = 0
 # to fit a TPU compile budget; the Hopper kernels read the pair bytes as
 # they are, so every spec the JAX package accepts runs here unchanged.
 
-PULL_CHUNK_CH = 128   # pulls pass 1: chunks per subblock x channels
+# words a CTA of csrc/tile_multi.cuh's index places in one window (its
+# IDX_WIN): the pulls' row index gives each CTA a run of this many words'
+# worth of tiles of one subblock (14 tiles, 228 CTAs at full width)
+PULL_RUN_WORDS = 20480
 
 
-def _pull_scratch(spec: TileSpec, ch: int, device
-                  ) -> Tuple[torch.Tensor, int]:
-    """(partial slabs (S, nchunk, 8192, ch), tiles per chunk) of
-    csrc/tile_multi.cuh's pulls pass 1: nchunk·ch <= 128, so the scratch
-    stays near 50 MB at full width whatever ch is."""
-    target = max(1, min(TILE_CHUNKS, PULL_CHUNK_CH // ch))
-    per_chunk = -(-spec.tiles // target)
-    nchunk = -(-spec.tiles // per_chunk)
-    return (torch.empty((spec.subblocks, nchunk, RSUB, ch),
-                        dtype=torch.float32, device=device), per_chunk)
-
-
-def _push_scratch(spec: TileSpec, device
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(index, perm) int32 scratch of csrc/tile_multi.cuh's pushes: index
-    holds the bucket starts (nb + 1) and the tile counts (tiles), perm one
-    block row per pair word (17.3 MB at full width)."""
+def _perm_scratch(spec: TileSpec, device) -> torch.Tensor:
+    """One int32 per pair word (17.3 MB at full width): the ``perm`` of
+    csrc/tile_multi.cuh's row and bucket indexes. The fused steps pass one
+    to both: the pulls' perm is dead once the pulls have run."""
     T, SG, N = spec.pairs_shape
-    return (torch.empty(spec.nb + 1 + T, dtype=torch.int32, device=device),
-            torch.empty(T * SG * N, dtype=torch.int32, device=device))
+    return torch.empty(T * SG * N, dtype=torch.int32, device=device)
+
+
+def _pull_scratch(spec: TileSpec, device) -> Tuple[torch.Tensor, int]:
+    """(index, tiles per run) of csrc/tile_multi.cuh's pulls: index holds
+    the row starts (rows + 1), the (subblock, run, row) offsets and the
+    1024-row chunk totals."""
+    per_run = max(1, PULL_RUN_WORDS // spec.cap)
+    nrun = -(-spec.tiles // per_run)
+    rows = spec.block_rows
+    return (torch.empty(rows + 1 + spec.subblocks * nrun * RSUB + rows // 1024,
+                        dtype=torch.int32, device=device), per_run)
+
+
+def _push_scratch(spec: TileSpec, device) -> torch.Tensor:
+    """The index of csrc/tile_multi.cuh's pushes: the bucket starts (nb + 1)
+    and the tile counts (tiles)."""
+    return torch.empty(spec.nb + 1 + spec.tiles, dtype=torch.int32,
+                       device=device)
 
 
 def _check_table(name: str, t: torch.Tensor, n: int, device) -> int:
@@ -930,16 +937,48 @@ def spill_push_scatter(g: torch.Tensor, dual_rows: torch.Tensor,
     return g
 
 
+def _word_csr(pw: torch.Tensor, spec: TileSpec, by_row: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(start (n+1,), key, other) int64: the valid pair words sorted by
+    key — the block row (``by_row``, n = rows) or the bucket (n = nb) —
+    stably, so each key's words stay in word order ((tile, group, slot)
+    order, the order ``decode_pairs`` flattens them in); ``other`` is each
+    word's bucket (``by_row``) or block row."""
+    bucket, row, valid = decode_pairs(pw, spec)
+    kb, kr = bucket[valid], row[valid]
+    key, other, n = (kr, kb, spec.block_rows) if by_row else (kb, kr, spec.nb)
+    order = torch.argsort(key, stable=True)
+    start = torch.zeros(n + 1, dtype=torch.int64, device=pw.device)
+    start[1:] = torch.cumsum(torch.bincount(key, minlength=n), 0)
+    return start, key[order], other[order]
+
+
+def _word_order_sums(start: torch.Tensor, key: torch.Tensor,
+                     other: torch.Tensor, vals: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """(n, ch) f32: per key, the sum of bf16(vals[other, :]) over its words,
+    from 0 in f32, left to right in word order, on any device. Each word's
+    rank among its key's words comes from the stable CSR, then one
+    ``index_add_`` per rank: within one rank the keys are distinct, so no
+    two adds meet and the order is exact."""
+    rank = torch.arange(key.numel(), device=key.device) - start[key]
+    by_rank = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist()
+    vb = vals.to(torch.bfloat16).to(torch.float32)
+    out = torch.zeros((n, vals.shape[1]), dtype=torch.float32,
+                      device=key.device)
+    for k, o in zip(key[by_rank].split(sizes), other[by_rank].split(sizes)):
+        out.index_add_(0, k, vb[o])
+    return out
+
+
 def forward_pulls_plain(pw: torch.Tensor, w: torch.Tensor,
                         spec: TileSpec) -> torch.Tensor:
     """pulls (block_rows, ch) f32 = per row, the sum of bf16(w[bucket, :])
-    over its pair words — decode, gather and ``index_add_`` in plain
-    torch."""
-    bucket, row, valid = decode_pairs(pw, spec)
-    wb = w.to(torch.bfloat16).to(torch.float32)
-    return torch.zeros((spec.block_rows, w.shape[1]), dtype=torch.float32,
-                       device=pw.device).index_add_(0, row[valid],
-                                                    wb[bucket[valid]])
+    over its pair words, from 0 in f32, left to right in word order, on any
+    device (``_word_order_sums`` over the CSR by row)."""
+    start, kr, kb = _word_csr(pw, spec, by_row=True)
+    return _word_order_sums(start, kr, kb, w, spec.block_rows)
 
 
 def forward_pulls(pw: torch.Tensor, w: torch.Tensor, spec: TileSpec,
@@ -953,21 +992,24 @@ def forward_pulls(pw: torch.Tensor, w: torch.Tensor, spec: TileSpec,
     The wrapper of ``wh_tile_pulls`` (csrc/tile_multi.cu), which replaces
     the TPU kernel ``_fwd_multi_kernel`` (#4). On a CUDA tensor it launches
     the kernel (counted in ``forward_pulls.launches``) or raises; on a CPU
-    tensor, and only there, ``forward_pulls_plain``. Every (row, channel)
-    is summed in one fixed order: the same bits on every run."""
+    tensor, and only there, ``forward_pulls_plain``. The kernel builds a
+    CSR of the words by row (``pull_index``) and sums every (row, channel)
+    from 0 in word order, as the plain version does, so it equals that
+    version bitwise; the fused steps run the same device code."""
     _check_pw(pw, spec)
     ch = _check_table("w", w, spec.nb, pw.device)
     if pw.device.type == "cuda":
-        lib = _lib("tile_multi", "wh_tile_pulls", [_P] * 4 + [_I] * 6 + [_P])
-        partial, per_chunk = _pull_scratch(spec, ch, pw.device)
+        lib = _lib("tile_multi", "wh_tile_pulls", [_P] * 5 + [_I] * 6 + [_P])
+        index, per_run = _pull_scratch(spec, pw.device)
+        perm = _perm_scratch(spec, pw.device)
         pulls = torch.empty((spec.block_rows, ch), dtype=torch.float32,
                             device=pw.device)
         T, SG, _ = spec.pairs_shape
         with torch.cuda.device(pw.device):
             err = lib.wh_tile_pulls(pw.data_ptr(), w.data_ptr(),
-                                    partial.data_ptr(), pulls.data_ptr(), T,
-                                    SG, spec.group, spec.cap, ch, per_chunk,
-                                    _stream(pw))
+                                    index.data_ptr(), perm.data_ptr(),
+                                    pulls.data_ptr(), T, SG, spec.group,
+                                    spec.cap, ch, per_run, _stream(pw))
         _ext.check(lib, err, "tile_pulls")
         forward_pulls.launches += 1
     else:
@@ -980,17 +1022,42 @@ def forward_pulls(pw: torch.Tensor, w: torch.Tensor, spec: TileSpec,
 forward_pulls.launches = 0
 
 
-def _push_csr(pw: torch.Tensor, spec: TileSpec
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(start (nb+1,), bucket, row) int64: the valid pair words sorted by
-    bucket, stably, so each bucket's words stay in word order ((tile,
-    group, slot) order, the order ``decode_pairs`` flattens them in)."""
-    bucket, row, valid = decode_pairs(pw, spec)
-    kb, kr = bucket[valid], row[valid]
-    order = torch.argsort(kb, stable=True)
-    start = torch.zeros(spec.nb + 1, dtype=torch.int64, device=pw.device)
-    start[1:] = torch.cumsum(torch.bincount(kb, minlength=spec.nb), 0)
-    return start, kb[order], kr[order]
+def pull_index_plain(pw: torch.Tensor, spec: TileSpec
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(start (rows+1,), perm (n,)) int32: the CSR by block row of the
+    block's n valid pair words that csrc/tile_multi.cuh's pulls build. Row
+    r's words are perm[start[r]:start[r+1]], each as its table row
+    t*16384 + bucket, in word order."""
+    _check_pw(pw, spec)
+    start, _, buckets = _word_csr(pw, spec, by_row=True)
+    return start.to(torch.int32), buckets.to(torch.int32)
+
+
+def pull_index(pw: torch.Tensor, spec: TileSpec
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pull_index_plain``'s (start, perm), built by the index launches of
+    the pulls alone (``wh_pull_index``, csrc/tile_multi.cu), so a test can
+    hold the index against its plain version. On a CUDA tensor it launches
+    the kernel (counted in ``pull_index.launches``) or raises; on a CPU
+    tensor, and only there, ``pull_index_plain``."""
+    _check_pw(pw, spec)
+    if pw.device.type != "cuda":
+        return pull_index_plain(pw, spec)
+    lib = _lib("tile_multi", "wh_pull_index", [_P] * 3 + [_I] * 5 + [_P])
+    index, per_run = _pull_scratch(spec, pw.device)
+    perm = _perm_scratch(spec, pw.device)
+    T, SG, _ = spec.pairs_shape
+    with torch.cuda.device(pw.device):
+        err = lib.wh_pull_index(pw.data_ptr(), index.data_ptr(),
+                                perm.data_ptr(), T, SG, spec.group,
+                                spec.cap, per_run, _stream(pw))
+    _ext.check(lib, err, "pull_index")
+    pull_index.launches += 1
+    start = index[:spec.block_rows + 1]
+    return start, perm[:int(start[-1])]
+
+
+pull_index.launches = 0
 
 
 def push_index_plain(pw: torch.Tensor, spec: TileSpec
@@ -1000,7 +1067,7 @@ def push_index_plain(pw: torch.Tensor, spec: TileSpec
     words are perm[start[b]:start[b+1]], each as its block row, in word
     order."""
     _check_pw(pw, spec)
-    start, _, rows = _push_csr(pw, spec)
+    start, _, rows = _word_csr(pw, spec, by_row=False)
     return start.to(torch.int32), rows.to(torch.int32)
 
 
@@ -1015,7 +1082,8 @@ def push_index(pw: torch.Tensor, spec: TileSpec
     if pw.device.type != "cuda":
         return push_index_plain(pw, spec)
     lib = _lib("tile_multi", "wh_push_index", [_P] * 3 + [_I] * 4 + [_P])
-    index, perm = _push_scratch(spec, pw.device)
+    index = _push_scratch(spec, pw.device)
+    perm = _perm_scratch(spec, pw.device)
     T, SG, _ = spec.pairs_shape
     with torch.cuda.device(pw.device):
         err = lib.wh_push_index(pw.data_ptr(), index.data_ptr(),
@@ -1034,19 +1102,9 @@ def backward_pushes_plain(pw: torch.Tensor, dvals: torch.Tensor,
                           spec: TileSpec) -> torch.Tensor:
     """pushes (nb, ch) f32 = per bucket, the sum of bf16(dvals[row, :])
     over its pair words, from 0 in f32, left to right in word order, on any
-    device. Each word's rank among its bucket's words comes from a stable
-    sort by bucket, then one ``index_add_`` per rank: within one rank the
-    buckets are distinct, so no two adds meet and the order is exact."""
-    start, kb, kr = _push_csr(pw, spec)
-    rank = torch.arange(kb.numel(), device=pw.device) - start[kb]
-    by_rank = torch.argsort(rank, stable=True)
-    sizes = torch.bincount(rank).tolist()
-    db = dvals.to(torch.bfloat16).to(torch.float32)
-    out = torch.zeros((spec.nb, dvals.shape[1]), dtype=torch.float32,
-                      device=pw.device)
-    for b, r in zip(kb[by_rank].split(sizes), kr[by_rank].split(sizes)):
-        out.index_add_(0, b, db[r])
-    return out
+    device (``_word_order_sums`` over the CSR by bucket)."""
+    start, kb, kr = _word_csr(pw, spec, by_row=False)
+    return _word_order_sums(start, kb, kr, dvals, spec.nb)
 
 
 def backward_pushes(pw: torch.Tensor, dvals: torch.Tensor, spec: TileSpec,
@@ -1069,7 +1127,8 @@ def backward_pushes(pw: torch.Tensor, dvals: torch.Tensor, spec: TileSpec,
         lib = _lib("tile_multi", "wh_tile_pushes", [_P] * 6 + [_I] * 5 + [_P])
         dvb = torch.empty((spec.block_rows, ch), dtype=torch.bfloat16,
                           device=pw.device)
-        index, perm = _push_scratch(spec, pw.device)
+        index = _push_scratch(spec, pw.device)
+        perm = _perm_scratch(spec, pw.device)
         pushes = torch.empty((spec.nb, ch), dtype=torch.float32,
                              device=pw.device)
         T, SG, _ = spec.pairs_shape
@@ -1197,23 +1256,24 @@ def fused_fm_step(pw: torch.Tensor, wpull: torch.Tensor,
     if pw.device.type != "cuda":
         return fused_fm_step_plain(pw, wpull, labels, mask, spec, k, key,
                                    spill_pulls)
-    lib = _lib("tile_fm_step", "wh_fm_step", [_P] * 12 + [_I] * 7 + [_P])
+    lib = _lib("tile_fm_step", "wh_fm_step", [_P] * 13 + [_I] * 7 + [_P])
     dev, ch, rows = pw.device, k + 2, spec.block_rows
-    partial, per_chunk = _pull_scratch(spec, ch, dev)
+    pull_idx, per_run = _pull_scratch(spec, dev)
+    push_idx, perm = _push_scratch(spec, dev), _perm_scratch(spec, dev)
+    pulls = torch.empty((rows, ch), dtype=torch.float32, device=dev)
     margins = torch.empty(rows, dtype=torch.float32, device=dev)
     dvb = torch.empty((rows, ch), dtype=torch.bfloat16, device=dev)
     dvf = (torch.empty((rows, ch), dtype=torch.float32, device=dev)
            if spill_pulls is not None else None)
-    index, perm = _push_scratch(spec, dev)
     pushes = torch.empty((spec.nb, ch), dtype=torch.float32, device=dev)
     T, SG, _ = spec.pairs_shape
     with torch.cuda.device(dev):
         err = lib.wh_fm_step(
             pw.data_ptr(), wpull.data_ptr(), labels.data_ptr(),
-            mask.data_ptr(), _ptr(spill_pulls), partial.data_ptr(),
-            margins.data_ptr(), dvb.data_ptr(), _ptr(dvf), index.data_ptr(),
-            perm.data_ptr(), pushes.data_ptr(), T, SG, spec.group, spec.cap,
-            k, per_chunk, LOSS_IDS[key], _stream(pw))
+            mask.data_ptr(), _ptr(spill_pulls), pull_idx.data_ptr(),
+            pulls.data_ptr(), margins.data_ptr(), dvb.data_ptr(), _ptr(dvf),
+            push_idx.data_ptr(), perm.data_ptr(), pushes.data_ptr(), T, SG,
+            spec.group, spec.cap, k, per_run, LOSS_IDS[key], _stream(pw))
     _ext.check(lib, err, "tile_fm_step")
     fused_fm_step.launches += 1
     if spill_pulls is not None:
@@ -1388,24 +1448,25 @@ def fused_wd_step(pw: torch.Tensor, wpull: torch.Tensor,
     if pw.device.type != "cuda":
         return fused_wd_step_plain(pw, wpull, labels, mask, mlp, spec, key)
     lib = _lib("tile_wd_step", "wh_wd_step",
-               [_P] * 6 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P])
+               [_P] * 6 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P])
     dev, rows = pw.device, spec.block_rows
     sc = _WdScratch(mlp, sizes, rows, dev)
-    partial, per_chunk = _pull_scratch(spec, k + 1, dev)
+    pull_idx, per_run = _pull_scratch(spec, dev)
+    push_idx, perm = _push_scratch(spec, dev), _perm_scratch(spec, dev)
+    pulls = torch.empty((rows, k + 1), dtype=torch.float32, device=dev)
     margins = torch.empty(rows, dtype=torch.float32, device=dev)
     dvb = torch.empty((rows, k + 2), dtype=torch.bfloat16, device=dev)
-    index, perm = _push_scratch(spec, dev)
     pushes = torch.empty((spec.nb, k + 2), dtype=torch.float32, device=dev)
     T, SG, _ = spec.pairs_shape
     with torch.cuda.device(dev):
         err = lib.wh_wd_step(
             pw.data_ptr(), wpull.data_ptr(), labels.data_ptr(),
             mask.data_ptr(), sc.params.data_ptr(), sc.sizes.data_ptr(),
-            sc.L, sc.P, partial.data_ptr(), sc.acts.data_ptr(),
-            sc.gz.data_ptr(), sc.gpart.data_ptr(), margins.data_ptr(),
-            dvb.data_ptr(), sc.grad.data_ptr(), index.data_ptr(),
-            perm.data_ptr(), pushes.data_ptr(), T, SG, spec.group, spec.cap,
-            k, per_chunk, LOSS_IDS[key], _stream(pw))
+            sc.L, sc.P, pull_idx.data_ptr(), pulls.data_ptr(),
+            sc.acts.data_ptr(), sc.gz.data_ptr(), sc.gpart.data_ptr(),
+            margins.data_ptr(), dvb.data_ptr(), sc.grad.data_ptr(),
+            push_idx.data_ptr(), perm.data_ptr(), pushes.data_ptr(), T, SG,
+            spec.group, spec.cap, k, per_run, LOSS_IDS[key], _stream(pw))
     _ext.check(lib, err, "tile_wd_step")
     fused_wd_step.launches += 1
     return margins, pushes, _unpack_mlp(sc.grad, sizes)
