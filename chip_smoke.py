@@ -12,25 +12,28 @@ error:
 1. prints torch, CUDA, nvcc versions and the card's name and power limit;
 2. builds every kernel from ``wormhole_tpu_torch/ops/csrc`` (one ``nvcc`` per
    source, all at once) and prints the build time and register/smem use;
-3. holds the ``tile_fwd`` kernel against its plain torch version at full
-   width on a uniform block and on a block whose hot key spills into the COO
-   list, with the stated tolerance, and requires two kernel runs to be
-   bitwise equal;
+3. holds the ``tile_fwd`` kernel at full width, on a uniform block and on a
+   block whose hot key spills into the COO list, bitwise to its order-exact
+   plain torch version (each row summed in word order; plus the spill grid)
+   and to ``forward_pulls`` at one channel, and requires two kernel runs to
+   be bitwise equal;
 4. writes 4 crec2 blocks and a save_model text model from ``--seed`` with
    numpy, then runs the app's ``main`` (the CLI a user calls) to predict;
 5. checks every prediction against a float64 numpy oracle, and that the
    kernel launched once per predicted block during that run;
 6. runs a validation pass (``_run_eval``) and checks objv, AUC and accuracy
    against the oracle;
-7. times the kernel, its plain version and a one-call yardstick
-   (``torch.sparse.mm`` on a CSR matrix of the same pairs) per block with CUDA
-   events, beside the bound the card's memory rate sets;
+7. times the kernel (and the device time of its two launches apart), its
+   plain version, ``forward_pulls`` at one channel and a one-call yardstick
+   (``torch.sparse.mm`` on a CSR matrix of the same pairs) per block with
+   CUDA events, beside the bound the card's memory rate sets;
 8. holds the training kernels against their plain torch versions at full
    width: ``tile_bwd`` on a uniform block, a spill block and a fuse=8 spec
    (2^25 buckets), the fused steps ``tile_step_grad`` (with and without the
    spill grid) and ``tile_step_update``, and the split path's ``loss_dual``
-   and ``ftrl_push``; requires two runs to be bitwise equal and the fused
-   steps to equal the split chain bitwise;
+   and ``ftrl_push``; requires two runs to be bitwise equal, the fused
+   steps to equal the split chain bitwise and their margins to equal the
+   plain versions' bitwise;
 9. writes a 4-block spill file (ovf_cap 1024, a hot key) and a 4-block
    ovf_cap=0 file from ``--seed`` and trains 2 passes with validation on each
    resolution: ``fused`` on the spill file through ``main`` (also predicting
@@ -1278,17 +1281,22 @@ def main() -> int:
                                blk["ovf_r"])
         plain = (tt.forward_margins_plain(blk["pw"], wd, spec)
                  + tt.spill_margin_rows(wd, blk["ovf_b"], blk["ovf_r"], spec))
+        # a second word-order forward: the pulls' row index and segmented
+        # sum at one channel
+        pulls1 = tt.forward_pulls(blk["pw"], wd.view(NB, 1), spec,
+                                  blk["ovf_b"], blk["ovf_r"])[:, 0]
         torch.cuda.synchronize()
-        tol = row_tolerance(torch, tt, blk["pw"], wd, spec)
         err = (a.double() - plain.double()).abs()
-        require(bool(torch.all(err <= tol)),
-                f"{kind}: kernel vs plain exceeds the tolerance "
-                f"(max err {err.max().item():.3e})")
+        require(torch.equal(a, plain),
+                f"{kind}: kernel != order-exact plain version (max err "
+                f"{err.max().item():.3e})")
+        require(torch.equal(a, pulls1),
+                f"{kind}: kernel != forward_pulls at ch 1")
         require(torch.equal(a, b), f"{kind}: two kernel runs differ")
         max_err = max(max_err, err.max().item())
-        print(f"{kind}: spill pairs {n_ovf}  max |kernel - plain| "
-              f"{err.max().item():.3e}  tolerance 4*nnz*2^-24*sum|w_p| per "
-              f"row (largest {tol.max().item():.3e})  bitwise repeat ok")
+        print(f"{kind}: spill pairs {n_ovf}  kernel = order-exact plain "
+              f"(+ spill grid) bitwise, = forward_pulls at ch 1 bitwise, "
+              f"bitwise repeat ok")
         if kind == "uniform":
             uniform_block = blk
         else:
@@ -1412,17 +1420,23 @@ def main() -> int:
     ker = tt.forward_margins(pwd, wd, spec)
     require(bool(torch.all((lib - ker).abs() <= row_tolerance(
         torch, tt, pwd, wd, spec))), "sparse.mm yardstick disagrees")
+    w1 = wd.view(NB, 1)
     ms = time_ms(torch, lambda: tt.forward_margins(pwd, wd, spec))
     plain_ms = time_ms(torch, lambda: tt.forward_margins_plain(pwd, wd, spec))
     lib_ms = time_ms(torch, lambda: torch.sparse.mm(csr, wcol))
+    pulls1_ms = time_ms(torch, lambda: tt.forward_pulls(pwd, w1, spec))
     ms2 = time_ms(torch, lambda: tt.forward_margins(pwd, wd, spec))
+    fwd_parts = "  ".join(
+        f"{k.split('(')[0].split()[-1]} {v:.4f}" for k, v in
+        launch_ms(torch, lambda: tt.forward_margins(pwd, wd, spec)).items())
     n_pairs = int(valid.sum().item())
     nbytes = (pwd.numel() * 4 + table_bytes(torch, bucket[valid], 1)
               + spec.block_rows * 4)
     bound_ms = max(nbytes / PEAK_BYTES_S, n_pairs / PEAK_F32_S) * 1e3
-    print(f"tile_fwd {ms:.4f} ms (again {ms2:.4f})  plain {plain_ms:.4f} ms"
-          f"  sparse.mm {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e6:.2f} MB at {PEAK_BYTES_S / 1e12:.2f} TB/s; "
+    print(f"tile_fwd {ms:.4f} ms (again {ms2:.4f}; device: {fwd_parts})  "
+          f"plain {plain_ms:.4f} ms  sparse.mm {lib_ms:.4f} ms  "
+          f"forward_pulls at ch 1 {pulls1_ms:.4f} ms  bound {bound_ms:.4f} "
+          f"ms ({nbytes / 1e6:.2f} MB at {PEAK_BYTES_S / 1e12:.2f} TB/s; "
           f"{n_pairs} pair adds)  card {smi}")
 
     kernels = [{
@@ -1495,14 +1509,14 @@ def main() -> int:
                     f"tile_step_grad {kind} {loss}: fused != split")
             require(torch.equal(mf, mf2) and torch.equal(gf, gf2),
                     f"tile_step_grad {kind} {loss}: two runs differ")
-            mtol = row_tolerance(torch, tt, pw, wd, spec)
             merr = (mf.double() - mp.double()).abs()
             gtol = grad_tolerance(torch, tt, pw, spec, dk, dp)
             gerr = (gf.double() - gp.double()).abs()
-            require(bool(torch.all(merr <= mtol)) and bool(
-                torch.all(gerr <= gtol)), f"tile_step_grad {kind} {loss}: "
-                f"vs plain (margins {merr.max().item():.3e}, grad "
-                f"{gerr.max().item():.3e})")
+            require(torch.equal(mf, mp), f"tile_step_grad {kind} {loss}: "
+                    f"margins != plain (max err {merr.max().item():.3e})")
+            require(bool(torch.all(gerr <= gtol)),
+                    f"tile_step_grad {kind} {loss}: grad vs plain (max err "
+                    f"{gerr.max().item():.3e})")
             derr = (dk.double() - dp.double()).abs()
             dk_p = tt.loss_dual_plain(ms_, labels_d, mask_d, loss, exact)
             derr_same = (dk.double() - dk_p.double()).abs()
@@ -1516,7 +1530,7 @@ def main() -> int:
                                     derr_same.max().item())
             print(f"tile_step_grad {kind} {loss} exact_dense={exact}: "
                   f"fused = split bitwise, bitwise repeat ok; vs plain "
-                  f"margins {merr.max().item():.3e}, grad "
+                  f"margins bitwise, grad "
                   f"{gerr.max().item():.3e} (dual {derr.max().item():.3e}; "
                   f"loss_dual vs plain on the same margins "
                   f"{derr_same.max().item():.3e}, tolerance 2^-20 relative)")
@@ -1542,6 +1556,7 @@ def main() -> int:
         require(torch.equal(m_, ms_) and torch.equal(s_, ss)
                 and torch.equal(wd2, wds),
                 "tile_step_update: fused != split (or runs differ)")
+    require(torch.equal(ms_, mp), "tile_step_update: margins != plain")
     dp = tt.loss_dual_plain(mp, labels_d, mask_d, "logit", True)
     gtol = grad_tolerance(torch, tt, pw, spec, dk, dp)
     uerr = (ss.double() - sp_.double()).abs()
@@ -1555,7 +1570,8 @@ def main() -> int:
     errs["tile_step_update"] = uerr.max().item()
     errs["ftrl_push"] = perr.max().item()
     print(f"tile_step_update: fused = split bitwise (margins, w/z/cg, "
-          f"sum dw^2 {wds.item():.6g}), bitwise repeat ok; slots vs plain "
+          f"sum dw^2 {wds.item():.6g}), bitwise repeat ok; margins = plain "
+          f"bitwise; slots vs plain "
           f"{uerr.max().item():.3e}; ftrl_push vs plain on the same "
           f"gradient {perr.max().item():.3e} (per-slot f32 bound)")
     del runs, ss, sp_, pp, uerr, utol, perr, gtol

@@ -5,10 +5,14 @@ no JAX; ``tests/conftest.py`` imports JAX, so run it there as
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 
-Tests marked ``cuda`` skip on a host without a CUDA device. The margin
-tolerance is the one test_torch_tilemm.py states: 4·nnz·2⁻²⁴·Σ_p|w_p| per
-row, since kernel and plain version differ only in f32 summation order. The
-gradient's is the same bound over each bucket's bf16 duals. The FTRL slots
+Tests marked ``cuda`` skip on a host without a CUDA device. The forward
+kernel and its plain version both sum each row from 0 in word order, so the
+margins (alone and inside the fused steps) are held to bitwise equality, and
+so is ``forward_pulls`` at one channel, a second word-order forward. The
+gradient's tolerance is the one test_torch_tilemm.py states for margins,
+4·k·2⁻²⁴·Σ|terms| over each bucket's k bf16 duals, since the kernel and
+``backward_grad_plain`` (one ``index_add_``) differ in f32 summation order.
+The FTRL slots
 after a step are held to the plain version within 1e-5·(1 + |x|): they
 start from the same gradient up to that bound, and the update adds a few
 f32 roundings (the CPU tests derive the full per-slot bound). The
@@ -46,16 +50,6 @@ def operands(seed, skew):
     pw, ob, orow, n_ovf = tt.encode_block_capped(buckets, rows, SPEC, 1536)
     w = (rng.standard_normal(SPEC.nb) * 0.1).astype(np.float32)
     return buckets, rows, pw, ob, orow, n_ovf, w
-
-
-def row_tol(buckets, rows, w):
-    """4·nnz·2⁻²⁴·Σ|w_p| per row, over all pairs (spilled ones included,
-    with the larger of |w| and |bf16(w)|)."""
-    wb = torch.from_numpy(w).bfloat16().double().numpy()
-    mag = np.bincount(rows, weights=np.maximum(np.abs(wb), np.abs(w))[buckets],
-                      minlength=SPEC.block_rows)
-    cnt = np.bincount(rows, minlength=SPEC.block_rows)
-    return 4 * np.maximum(cnt, 1) * 2.0 ** -24 * mag + 1e-30
 
 
 def as_i32(a, device="cpu"):
@@ -164,8 +158,46 @@ def test_kernel_matches_plain_and_is_bitwise_reproducible(cuda, skew):
     plain = tt.forward_margins_plain(pwd, wd, SPEC)
     if skew:
         plain = plain + tt.spill_margin_rows(wd, *spill, SPEC)
-    err = np.abs(a.cpu().numpy() - plain.cpu().numpy())
-    assert np.all(err <= row_tol(buckets, rows, w))
+    # both sum each row from 0 in word order: equal bit for bit
+    assert torch.equal(a, plain)
+
+
+def shuffled_block(device):
+    """SPEC operands whose segments are shuffled within (pad words
+    included), so no segment is in row order."""
+    o = step_operands(77, device)
+    T, SG, _ = SPEC.pairs_shape
+    seg = o["pw"].cpu().numpy().reshape(T, SG, SPEC.group, SPEC.cap)
+    rng = np.random.default_rng(78)
+    for t, g, j in np.ndindex(seg.shape[:3]):
+        seg[t, g, j] = rng.permutation(seg[t, g, j])
+    pw = as_i32(seg.reshape(SPEC.pairs_shape), device)
+    assert not torch.equal(pw, o["pw"])
+    return pw, SPEC
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spec", "wide", "many_tiles", "shuffled"])
+def test_tile_fwd_equals_forward_pulls_at_one_channel(cuda, case):
+    """Two independent word-order forwards agree bit for bit: tile_fwd (row
+    spans) and forward_pulls at ch 1 (row index + segmented sum), on SPEC,
+    on WIDE (22,528-word segments), on MANY (256 tiles a subblock) and on
+    a block whose segments are shuffled within; both equal the plain
+    version."""
+    if case == "shuffled":
+        pw, spec = shuffled_block(cuda)
+    else:
+        pw, spec = index_block({"spec": "uniform", "wide": "wide",
+                                "many_tiles": "many_tiles"}[case], cuda)
+    w = torch.from_numpy((np.random.default_rng(79).standard_normal(spec.nb)
+                          * 0.3).astype(np.float32)).to(cuda)
+    before = tt.forward_margins.launches
+    m = tt.forward_margins(pw, w, spec)
+    torch.cuda.synchronize()
+    assert tt.forward_margins.launches == before + 1
+    assert torch.equal(m, tt.forward_pulls(pw, w.view(spec.nb, 1),
+                                           spec)[:, 0])
+    assert torch.equal(m, tt.forward_margins_plain(pw, w, spec))
 
 
 @pytest.mark.cuda
@@ -181,6 +213,18 @@ def test_kernel_rejects_bad_cuda_operands(cuda):
     assert tt.forward_margins.launches == before
     assert torch.all(tt.forward_margins(pw, torch.ones(SPEC.nb, device=cuda),
                                         SPEC) == 0)
+    # the C entry refuses a missing span-mask scratch and a 0-row span
+    lib = tt._lib("tile_fwd", "wh_tile_fwd", [tt._P] * 4 + [tt._I] * 5
+                  + [tt._P])
+    scratch, rows = tt._span_scratch(SPEC, cuda)
+    out = torch.empty(SPEC.block_rows, device=cuda)
+    T, SG, _ = SPEC.pairs_shape
+    for ptr, r in ((None, rows), (scratch.data_ptr(), 0)):
+        err = lib.wh_tile_fwd(pw.data_ptr(), out.data_ptr(), ptr,
+                              out.data_ptr(), T, SG, SPEC.group, SPEC.cap, r,
+                              tt._stream(pw))
+        with pytest.raises(RuntimeError):
+            _ext.check(lib, err, "tile_fwd")
 
 
 @pytest.mark.cuda
@@ -257,8 +301,8 @@ def test_tile_bwd_matches_plain_and_is_bitwise_reproducible(cuda, skew):
 @pytest.mark.parametrize("skew", [False, True])
 def test_fused_step_grad_equals_split_bitwise_on_cuda(cuda, loss, skew):
     """The fused step kernel equals the split chain (tile_fwd → loss_dual
-    → tile_bwd) bit for bit, repeats bitwise, and agrees with its plain
-    version within the margin bound."""
+    → tile_bwd) bit for bit, repeats bitwise, and its margins equal its
+    plain version's bitwise (both sum each row in word order)."""
     o = step_operands(50 + skew, cuda, skew)
     exact = loss in ("logit", "square_hinge")
     sp = (tt.spill_margin_rows(o["w"], o["ob"], o["orow"], SPEC) if skew
@@ -277,16 +321,15 @@ def test_fused_step_grad_equals_split_bitwise_on_cuda(cuda, loss, skew):
     assert torch.equal(mf, ms) and torch.equal(gf, gs)
     assert torch.equal(mf, mf2) and torch.equal(gf, gf2)
     mp, _ = tt.fused_step_grad_plain(*args, spill_margins=sp)
-    err = np.abs(mf.cpu().numpy() - mp.cpu().numpy())
-    assert np.all(err <= row_tol(o["buckets"], o["rows"],
-                                 o["w"].cpu().numpy()))
+    assert torch.equal(mf, mp)
 
 
 @pytest.mark.cuda
 def test_fused_step_update_equals_split_bitwise_on_cuda(cuda):
     """The in-place FTRL step equals tile_fwd → loss_dual → tile_bwd →
     ftrl_push bit for bit (margins, all three planes, Σ(Δw)²), repeats
-    bitwise, and agrees with its plain version."""
+    bitwise, and agrees with its plain version: margins bitwise, slots
+    within 1e-5·(1 + |x|)."""
     o = step_operands(54, cuda)
     runs = []
     for _ in range(2):
@@ -303,8 +346,9 @@ def test_fused_step_update_equals_split_bitwise_on_cuda(cuda):
         assert torch.equal(m_, ms) and torch.equal(s_, s)
         assert torch.equal(wd_, wd)
     p = o["slots"].clone()
-    tt.fused_step_update_plain(o["pw"], p, o["labels"], o["mask"], SPEC,
-                               "logit", HANDLE)
+    mp, _ = tt.fused_step_update_plain(o["pw"], p, o["labels"], o["mask"],
+                                       SPEC, "logit", HANDLE)
+    assert torch.equal(ms, mp)
     err = (s - p).abs().cpu().numpy()
     assert np.all(err <= 1e-5 * (1 + np.abs(p.cpu().numpy())))
 

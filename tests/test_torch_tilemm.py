@@ -125,6 +125,53 @@ def test_forward_margins_match_jax_and_ref(skew):
     assert np.all(np.abs(want - ref) <= tol)
 
 
+def word_order_fold(pw, w):
+    """Per row, bf16(w[bucket]) added in f32 from 0, one word at a time, in
+    word order: (tile, group, slot), read straight off the packed layout."""
+    T, SG, _ = SPEC.pairs_shape
+    p = pw.reshape(T, SG, SPEC.group, SPEC.cap).astype(np.int64)
+    hi = (p >> 7) & 511
+    t = np.broadcast_to(np.arange(T)[:, None, None, None], p.shape)
+    s = np.broadcast_to(np.arange(SG)[None, :, None, None] * SPEC.group
+                        + np.arange(SPEC.group)[None, None, :, None], p.shape)
+    valid = hi < 128
+    bucket = (t * tt.TILE + ((hi & 127) << 7 | (p & 127)))[valid]
+    row = (s * tt.RSUB + (((p >> 23) & 63) << 7 | ((p >> 16) & 127)))[valid]
+    out = np.zeros(SPEC.block_rows, np.float32)
+    wb = bf16(w)
+    for b, r in zip(bucket, row):
+        out[r] = np.float32(out[r] + wb[b])
+    return out
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_forward_margins_plain_sums_in_word_order_bitwise(spill):
+    """The order-exact plain forward equals a Python word-order fold, the
+    single index_add_ over all words that the CPU ran before (it adds in
+    index order too) and forward_pulls_plain at one channel, bit for bit;
+    with spill, forward_margins adds the spill margins to exactly these
+    bits."""
+    rng = np.random.default_rng(40 + spill)
+    _, _, pw, ob, orow, n_ovf, w = _operands(rng, spill)
+    assert (n_ovf > 0) == spill
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+    got = tt.forward_margins_plain(t(pw), torch.from_numpy(w), SPEC)
+    assert got.numpy().tobytes() == word_order_fold(pw, w).tobytes()
+    bucket, row, valid = tt.decode_pairs(t(pw), SPEC)
+    one_call = torch.zeros(SPEC.block_rows).index_add_(
+        0, row[valid], torch.from_numpy(w).to(torch.bfloat16).float()[
+            bucket[valid]])
+    assert torch.equal(got, one_call)
+    pulls = tt.forward_pulls_plain(t(pw), torch.from_numpy(w).view(-1, 1),
+                                   SPEC)
+    assert torch.equal(got, pulls[:, 0])
+    sp = (t(ob), t(orow)) if spill else (None, None)
+    want = (got + tt.spill_margin_rows(torch.from_numpy(w), *sp, SPEC)
+            if spill else got)
+    assert torch.equal(tt.forward_margins(t(pw), torch.from_numpy(w), SPEC,
+                                          *sp), want)
+
+
 def test_spill_margin_rows_matches_jax_with_shared_rows():
     rng = np.random.default_rng(3)
     w = rng.standard_normal(SPEC.nb).astype(np.float32)

@@ -1,51 +1,35 @@
 // Tile forward margins on Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces wormhole_tpu/ops/tilemm.py `_fwd_kernel` (:309, built by
-// `_build_fwd` :573). The device code and its determinism design live in
-// tile_fwd.cuh, which tile_step.cu shares as phase 1 of the train step.
+// `_build_fwd` :573). The device code and its design live in tile_fwd.cuh,
+// which tile_step.cu shares as phase 1 of the train step: a tile pass, then
+// one launch of row-span CTAs, each owning its rows outright and summing
+// each row in word order, so the margins equal tilemm.forward_margins_plain
+// bitwise.
 //
-// What bounds it: bytes. The TPU kernel turned the gather into one-hot MXU
-// matmuls (~350 GFLOP of bf16 per 98,304-row criteo block) because the TPU
-// has no fast gather. Hopper has one, and w (16.8 MB f32 at 2^22 buckets)
-// fits the 50 MB L2, so this kernel is a direct gather: it must move the
-// pair words (17.3 MB), w once (16.8 MB) and the margins (0.39 MB).
-//
-// A simple kernel first: no TMA/wgmma, no tuning. Every warp reads all of
-// its chunk's words (8x redundant L1 reads); later work can remove that.
+// What bounds it. The byte bound is the pair words (17.3 MB), w once
+// (16.8 MB) and the margins (0.39 MB) per full-width criteo block. The TPU
+// kernel turned the gather into one-hot MXU matmuls because the TPU has no
+// fast gather; Hopper has one, and w fits the 50 MB L2, so this kernel is a
+// direct gather, from a tile's w slice in shared memory. Its two launches
+// read the words and w once, and write and read one packed value per word
+// (17.3 MB) (tile_fwd.cuh, PERF.md).
 
 #include "tile_fwd.cuh"
 
-namespace {
-
-__global__ void tile_fwd_combine(const float* __restrict__ partial,
-                                 float* __restrict__ margins, long long rows,
-                                 int nchunk) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  margins[i] = wh::fwd_combine_row(partial, i, nchunk);
-}
-
-}  // namespace
-
 extern "C" {
 
-// margins (S*8192,) f32 from pw (T, SG, GS*C) i32 and w (T*16384,) f32.
-// partial is scratch of (S, nchunk, 8192) f32 with
-// nchunk = ceil(T / tiles_per_chunk). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after each launch
-// (0 = success).
-int wh_tile_fwd(const int32_t* pw, const float* w, float* partial,
-                float* margins, int T, int SG, int GS, int C,
-                int tiles_per_chunk, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = wh::launch_fwd_partial(pw, w, partial, T, SG, GS, C,
-                                   tiles_per_chunk, st);
-  if (err != 0) return err;
-  const int nchunk = (T + tiles_per_chunk - 1) / tiles_per_chunk;
-  const long long rows = (long long)SG * GS * wh::RSUB;
-  tile_fwd_combine<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
-      partial, margins, rows, nchunk);
-  return (int)cudaGetLastError();
+// margins (S*8192,) f32 from pw (T, SG, GS*C) i32 and w (T*16384,) f32,
+// with R rows a CTA; scratch holds one u32 per word of pw, then S * T *
+// ceil(C/1024) * (ceil(8192/R) + 1) u16 of span starts.
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after each launch (0 = success).
+int wh_tile_fwd(const int32_t* pw, const float* w, unsigned* scratch,
+                float* margins, int T, int SG, int GS, int C, int R,
+                void* stream) {
+  return wh::launch_fwd<wh::ROW_WARPS, wh::ROW_U>(
+      pw, w, scratch, T, SG, GS, C, R, wh::FwdMargins{margins},
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* wh_error_string(int err) {

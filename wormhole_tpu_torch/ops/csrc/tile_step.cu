@@ -15,22 +15,26 @@
 // The TPU ran the step as one two-phase grid. Hopper blocks run in no order,
 // so the phase boundary is a grid-wide dependency; here the phases are
 // back-to-back launches on one stream:
-//   1. tile_fwd_partial (tile_fwd.cuh): the margins' partial slabs;
-//   2. step_boundary: combines the slabs in chunk order, adds the spill
-//      grid, computes the dual (+ nudge) and writes the bf16 dual grid —
-//      the margins never make a second round trip;
-//   3. the tile backward (tile_bwd.cuh: the word-ordered dual gather, then
+//   1. the forward (tile_fwd.cuh: the tile pass, then fwd_rows) with the
+//      step's boundary as the epilogue of fwd_rows: the CTA that owns a row
+//      sums it in word order, adds the spill grid, computes the dual
+//      (+ nudge) and writes the margin and the bf16 dual grid, so the
+//      margins are written once and no boundary launch remains;
+//   2. the tile backward (tile_bwd.cuh: the word-ordered dual gather, then
 //      one CTA per tile) with an epilogue: the gradient
 //      written out (grad step) or the FTRL update on the tile's w/z/cg
 //      plane slices (update step), from the gradient in shared memory.
+// wh_tile_fwd runs the same fwd_rows code with the margin store as its
+// epilogue, so the split chain's margins are the fused step's bits.
 // A cooperative single launch with a grid sync is the later alternative.
 //
 // What bounds it: bytes. Per full-width criteo block (2^22 buckets, 98,304
 // rows), the grad step moves pw (17.3 MB), w (16.8 MB), labels, mask and
 // margins (0.4 MB each) and grad (16.8 MB); the update step moves pw, the
 // w/z/cg planes in and out (100.7 MB), labels, mask and margins. The
-// partial slabs (25 MB), the bf16 dual grid (0.2 MB) and the word-ordered
-// dual values (8.6 MB) are extra traffic of this design.
+// forward's packed values (17.3 MB written and read, tile_fwd.cuh), the
+// bf16 dual grid (0.2 MB) and the word-ordered dual values (8.6 MB) are
+// extra traffic of this design.
 
 #include "tile_bwd.cuh"
 #include "tile_math.cuh"
@@ -42,22 +46,25 @@ using wh::BWD_THREADS;
 using wh::BWD_WARPS;
 using wh::TILE;
 
-__global__ void step_boundary(const float* __restrict__ partial, int nchunk,
-                              const float* __restrict__ spill,
-                              const float* __restrict__ labels,
-                              const float* __restrict__ mask,
-                              float* __restrict__ margins,
-                              __nv_bfloat16* __restrict__ dual,
-                              long long rows, int loss, int exact_dense) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  float m = wh::fwd_combine_row(partial, i, nchunk);
-  if (spill != nullptr) m = m + spill[i];
-  margins[i] = m;
-  float d = wh::loss_dual(loss, m, labels[i], mask[i]);
-  if (!exact_dense) d = wh::nudge_zero_dual(d, labels[i], mask[i]);
-  dual[i] = __float2bfloat16_rn(d);
-}
+// The boundary of both step variants as the forward's epilogue, on each
+// row's final sum: the spill grid's single f32 add, the dual [+ nudge], the
+// margin and the bf16 dual grid the backward's gather_dual reads.
+struct StepBoundary {
+  const float* spill;
+  const float* labels;
+  const float* mask;
+  float* margins;
+  __nv_bfloat16* dual;
+  int loss, exact_dense;
+  __device__ __forceinline__ void operator()(int s, int r, float m) const {
+    const long long i = (long long)s * wh::RSUB + r;
+    if (spill != nullptr) m = m + spill[i];
+    margins[i] = m;
+    float d = wh::loss_dual(loss, m, labels[i], mask[i]);
+    if (!exact_dense) d = wh::nudge_zero_dual(d, labels[i], mask[i]);
+    dual[i] = __float2bfloat16_rn(d);
+  }
+};
 
 __global__ void __launch_bounds__(BWD_THREADS)
 step_bwd_ftrl(const int32_t* __restrict__ pw,
@@ -96,21 +103,16 @@ __global__ void loss_dual_kernel(const float* __restrict__ margins,
   dual[i] = d;
 }
 
-// Phases 1 and 2 of both step variants.
+// Phase 1 of both step variants: the forward and the boundary.
 int fwd_and_boundary(const int32_t* pw, const float* w, const float* labels,
-                     const float* mask, const float* spill, float* partial,
+                     const float* mask, const float* spill, unsigned* scratch,
                      float* margins, __nv_bfloat16* dual, int T, int SG,
-                     int GS, int C, int tiles_per_chunk, int loss,
-                     int exact_dense, cudaStream_t st) {
-  int err = wh::launch_fwd_partial(pw, w, partial, T, SG, GS, C,
-                                   tiles_per_chunk, st);
-  if (err != 0) return err;
-  const int nchunk = (T + tiles_per_chunk - 1) / tiles_per_chunk;
-  const long long rows = (long long)SG * GS * wh::RSUB;
-  step_boundary<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
-      partial, nchunk, spill, labels, mask, margins, dual, rows, loss,
-      exact_dense);
-  return (int)cudaGetLastError();
+                     int GS, int C, int R, int loss, int exact_dense,
+                     cudaStream_t st) {
+  return wh::launch_fwd<wh::ROW_WARPS, wh::ROW_U>(
+      pw, w, scratch, T, SG, GS, C, R,
+      StepBoundary{spill, labels, mask, margins, dual, loss, exact_dense},
+      st);
 }
 
 }  // namespace
@@ -119,39 +121,35 @@ extern "C" {
 
 // (margins (S*8192,), grad (T*16384,)) from pw (T, SG, GS*C) i32, w
 // (T*16384,) f32 and the f32 labels/mask rows; `spill` is the (S*8192,)
-// spill-margin grid or null. partial (S, nchunk, 8192) f32, dual (S*8192,)
-// bf16 and dv (one bf16 per word of pw) are scratch. Returns
-// cudaGetLastError() after each launch.
+// spill-margin grid or null; R rows a forward CTA. scratch (the forward's,
+// as in wh_tile_fwd), dual (S*8192,) bf16 and dv (one bf16 per word of pw)
+// are scratch too. Returns cudaGetLastError() after each launch.
 int wh_step_grad(const int32_t* pw, const float* w, const float* labels,
-                 const float* mask, const float* spill, float* partial,
+                 const float* mask, const float* spill, unsigned* scratch,
                  float* margins, __nv_bfloat16* dual, __nv_bfloat16* dv,
-                 float* grad, int T,
-                 int SG, int GS, int C, int tiles_per_chunk, int loss,
+                 float* grad, int T, int SG, int GS, int C, int R, int loss,
                  int exact_dense, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = fwd_and_boundary(pw, w, labels, mask, spill, partial, margins,
-                             dual, T, SG, GS, C, tiles_per_chunk, loss,
-                             exact_dense, st);
+  int err = fwd_and_boundary(pw, w, labels, mask, spill, scratch, margins,
+                             dual, T, SG, GS, C, R, loss, exact_dense, st);
   if (err != 0) return err;
   return wh::launch_bwd_grad(pw, (const __nv_bfloat16*)dual, dv, grad, T,
                              SG, GS, C, st);
 }
 
 // margins, and the FTRL update in place on the w/z/cg planes (each
-// (T*16384,) f32; w is also the forward's operand); partial, dual and dv
-// are scratch as in wh_step_grad. wdelta2 (T,) f32
-// receives each tile's Σ(w' - w)². No nudge: FTRL is exact-dense.
+// (T*16384,) f32; w is also the forward's operand); scratch, dual and dv
+// are scratch as in wh_step_grad. wdelta2 (T,) f32 receives each tile's
+// Σ(w' - w)². No nudge: FTRL is exact-dense.
 int wh_step_update(const int32_t* pw, float* w, float* z, float* cg,
-                   const float* labels, const float* mask, float* partial,
+                   const float* labels, const float* mask, unsigned* scratch,
                    float* margins, __nv_bfloat16* dual, __nv_bfloat16* dv,
-                   float* wdelta2,
-                   int T, int SG, int GS, int C, int tiles_per_chunk,
+                   float* wdelta2, int T, int SG, int GS, int C, int R,
                    int loss, float alpha, float beta, float lambda1,
                    float lambda2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = fwd_and_boundary(pw, w, labels, mask, nullptr, partial, margins,
-                             dual, T, SG, GS, C, tiles_per_chunk, loss, 1,
-                             st);
+  int err = fwd_and_boundary(pw, w, labels, mask, nullptr, scratch, margins,
+                             dual, T, SG, GS, C, R, loss, 1, st);
   if (err != 0) return err;
   err = wh::launch_gather_dual(pw, (const __nv_bfloat16*)dual, dv, T, SG, GS,
                                C, st);

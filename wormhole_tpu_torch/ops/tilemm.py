@@ -74,14 +74,6 @@ LO_M, HI_M, RLO_M, RHI_M = 127, 511, 127, 63
 PADWORD = np.uint32(511 << HI_SH)
 OVF_SENTINEL = -1   # 0xFFFFFFFF spill-bucket sentinel, read as int32
 
-# tile chunks per subblock in csrc/tile_fwd.cu's pass 1 (one CTA each):
-# the criteo geometry (256 tiles, 12 subblocks) gets 4 tiles per CTA and
-# 768 CTAs, enough warps per SM to hide the gather latency, while the
-# partial-slab scratch stays (subblocks, 64, 8192) f32 at any table size
-# (scripts/torch_tile_fwd_sweep.py times the alternatives)
-TILE_CHUNKS = 64
-
-
 @dataclass(frozen=True)
 class TileSpec:
     """Static layout of one encoded block (stored in the crec2 header).
@@ -288,12 +280,21 @@ def _word_scratch(pw: torch.Tensor) -> torch.Tensor:
     return torch.empty(pw.numel(), dtype=torch.bfloat16, device=pw.device)
 
 
-def _fwd_scratch(spec: TileSpec, device) -> Tuple[torch.Tensor, int]:
-    """(partial slabs, tiles per chunk) of csrc/tile_fwd.cuh's pass 1."""
-    per_chunk = -(-spec.tiles // TILE_CHUNKS)
-    nchunk = -(-spec.tiles // per_chunk)
-    return (torch.empty((spec.subblocks, nchunk, RSUB), dtype=torch.float32,
-                        device=device), per_chunk)
+def _span_scratch(spec: TileSpec, device) -> Tuple[torch.Tensor, int]:
+    """(scratch, rows a span) of csrc/tile_fwd.cuh: each subblock's 8192
+    rows cut into ceil(SMs / subblocks) spans, one CTA each, so the (span,
+    subblock) grid fills the card once (11 spans of 745 rows, 132 CTAs, at
+    12 subblocks on an H100). The scratch holds the tile pass's packed
+    value of every pair word (17.3 MB at full width) and the span starts of
+    every 1024-word chunk (0.15 MB). Each row is summed in word order
+    whatever the span, so the result does not depend on it."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = -(-RSUB // max(1, -(-sms // spec.subblocks)))
+    T, SG, N = spec.pairs_shape
+    offs = (spec.subblocks * T * -(-spec.cap // 1024)
+            * (-(-RSUB // rows) + 1))
+    n = T * SG * N + -(-offs // 2)
+    return torch.empty(n, dtype=torch.int32, device=device), rows
 
 
 # ---------------------------------------------------------------------------
@@ -342,29 +343,25 @@ def decode_pairs(pw: torch.Tensor, spec: TileSpec
 def forward_margins_plain(pw: torch.Tensor, w: torch.Tensor,
                           spec: TileSpec) -> torch.Tensor:
     """margins (block_rows,) f32 = per row, the sum of bf16(w[bucket])
-    over its pair words — decode, gather and ``index_add_`` in plain torch.
-    On the CPU the sum runs in pair order, so it is reproducible; on a CUDA
-    tensor ``index_add_`` uses float atomics and is not."""
+    over its pair words, from 0 in f32, left to right in word order, on any
+    device: ``forward_pulls_plain``'s sums at one channel."""
     _check_operands(pw, w, spec)
-    bucket, row, valid = decode_pairs(pw, spec)
-    wb = w.to(torch.bfloat16).to(torch.float32)
-    vals = wb[bucket[valid]]
-    return torch.zeros(spec.block_rows, dtype=torch.float32,
-                       device=pw.device).index_add_(0, row[valid], vals)
+    start, kr, kb = _word_csr(pw, spec, by_row=True)
+    return _word_order_sums(start, kr, kb, w.view(spec.nb, 1),
+                            spec.block_rows)[:, 0]
 
 
 def _launch_tile_fwd(pw: torch.Tensor, w: torch.Tensor,
                      spec: TileSpec) -> torch.Tensor:
     lib = _lib("tile_fwd", "wh_tile_fwd", [_P] * 4 + [_I] * 5 + [_P])
     T, SG, _ = spec.pairs_shape
-    partial, per_chunk = _fwd_scratch(spec, pw.device)
+    scratch, rows = _span_scratch(spec, pw.device)
     margins = torch.empty(spec.block_rows, dtype=torch.float32,
                           device=pw.device)
     with torch.cuda.device(pw.device):
-        err = lib.wh_tile_fwd(pw.data_ptr(), w.data_ptr(),
-                              partial.data_ptr(), margins.data_ptr(),
-                              T, SG, spec.group, spec.cap, per_chunk,
-                              _stream(pw))
+        err = lib.wh_tile_fwd(pw.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+                              margins.data_ptr(), T, SG, spec.group,
+                              spec.cap, rows, _stream(pw))
     _ext.check(lib, err, "tile_fwd")
     return margins
 
@@ -426,10 +423,13 @@ def forward_margins(pw: torch.Tensor, w: torch.Tensor, spec: TileSpec,
     kernel ``wormhole_tpu/ops/tilemm.py:_fwd_kernel``: on a CUDA tensor it
     launches the kernel (and counts the launch in
     ``forward_margins.launches``) or raises; on a CPU tensor, and only
-    there, it runs ``forward_margins_plain``. The kernel is bound by the
-    bytes it moves (pw, w once, margins) and returns the same bits on
-    every run: each row is summed in a fixed order with no float atomics
-    (see the note in the source)."""
+    there, it runs ``forward_margins_plain``. The kernel gives each CTA a
+    span of one subblock's rows, owned outright: a tile pass gathers
+    bf16(w) for every word from the tile's w slice in shared memory and
+    sorts each 1024-word chunk by span, and the span's CTA reads only its
+    words and sums each row from 0 in word order, with no float atomics
+    and no partial slabs, so it equals the plain version bitwise and gives
+    the same bits on every run (see the note in the source)."""
     _check_operands(pw, w, spec)
     if pw.device.type == "cuda":
         margins = _launch_tile_fwd(pw, w, spec)
@@ -753,8 +753,13 @@ def fused_step_grad(pw: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     TPU kernel ``_make_step_kernel`` built by ``_build_step_grad`` (#6). On
     a CUDA tensor it launches the step (counted in
     ``fused_step_grad.launches``) or raises; on a CPU tensor, and only
-    there, it runs ``fused_step_grad_plain``. Its margins and grad equal
-    the split chain forward_margins → loss_dual → backward_grad bitwise."""
+    there, it runs ``fused_step_grad_plain``. The forward (the tile pass,
+    then the row spans with the boundary: spill add, dual, nudge, bf16 dual
+    grid, as their epilogue) sums each row in word order as
+    ``forward_margins`` does, so the margins equal
+    ``fused_step_grad_plain``'s bitwise; then the backward. Its margins and
+    grad equal the split chain forward_margins → loss_dual → backward_grad
+    bitwise."""
     key = loss_key(loss)
     _check_operands(pw, w, spec)
     _check_rows(spec.block_rows, pw.device, labels=labels, mask=mask)
@@ -766,7 +771,7 @@ def fused_step_grad(pw: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     lib = _lib("tile_step", "wh_step_grad",
                [_P] * 10 + [_I] * 7 + [_P])
     dev = pw.device
-    partial, per_chunk = _fwd_scratch(spec, dev)
+    scratch, rows = _span_scratch(spec, dev)
     margins = torch.empty(spec.block_rows, dtype=torch.float32, device=dev)
     dual = torch.empty(spec.block_rows, dtype=torch.bfloat16, device=dev)
     dv = _word_scratch(pw)
@@ -775,10 +780,10 @@ def fused_step_grad(pw: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.wh_step_grad(
             pw.data_ptr(), w.data_ptr(), labels.data_ptr(), mask.data_ptr(),
-            _ptr(spill_margins), partial.data_ptr(), margins.data_ptr(),
-            dual.data_ptr(), dv.data_ptr(), grad.data_ptr(),
-            T, SG, spec.group, spec.cap,
-            per_chunk, LOSS_IDS[key], int(exact_dense), _stream(pw))
+            _ptr(spill_margins), scratch.data_ptr(), margins.data_ptr(),
+            dual.data_ptr(), dv.data_ptr(), grad.data_ptr(), T, SG,
+            spec.group, spec.cap, rows, LOSS_IDS[key], int(exact_dense),
+            _stream(pw))
     _ext.check(lib, err, "tile_step_grad")
     fused_step_grad.launches += 1
     return margins, grad
@@ -812,8 +817,10 @@ def fused_step_update(pw: torch.Tensor, slots: torch.Tensor,
     memory and goes straight into the update, so the (nb,) gradient never
     exists in device memory. On a CUDA tensor it launches the step (counted
     in ``fused_step_update.launches``) or raises; on a CPU tensor, and only
-    there, ``fused_step_update_plain``. Margins and slots equal the split
-    chain's (… → backward_grad → ftrl_push) bitwise."""
+    there, ``fused_step_update_plain``. Its forward runs the boundary as
+    its epilogue and sums each row in word order, so the margins equal the
+    plain version's bitwise. Margins and slots equal the split chain's
+    (… → backward_grad → ftrl_push) bitwise."""
     key = loss_key(loss)
     _check_slots(slots, spec.nb, pw.device)
     _check_operands(pw, slots[0], spec)
@@ -824,7 +831,7 @@ def fused_step_update(pw: torch.Tensor, slots: torch.Tensor,
     lib = _lib("tile_step", "wh_step_update",
                [_P] * 11 + [_I] * 6 + [_F] * 4 + [_P])
     dev = pw.device
-    partial, per_chunk = _fwd_scratch(spec, dev)
+    scratch, rows = _span_scratch(spec, dev)
     margins = torch.empty(spec.block_rows, dtype=torch.float32, device=dev)
     dual = torch.empty(spec.block_rows, dtype=torch.bfloat16, device=dev)
     dv = _word_scratch(pw)
@@ -835,10 +842,9 @@ def fused_step_update(pw: torch.Tensor, slots: torch.Tensor,
         err = lib.wh_step_update(
             pw.data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
             slots[2].data_ptr(), labels.data_ptr(), mask.data_ptr(),
-            partial.data_ptr(), margins.data_ptr(), dual.data_ptr(),
-            dv.data_ptr(), part.data_ptr(), T, SG,
-            spec.group, spec.cap, per_chunk,
-            LOSS_IDS[key], lr.alpha, lr.beta, p.lambda1, p.lambda2,
+            scratch.data_ptr(), margins.data_ptr(), dual.data_ptr(),
+            dv.data_ptr(), part.data_ptr(), T, SG, spec.group, spec.cap,
+            rows, LOSS_IDS[key], lr.alpha, lr.beta, p.lambda1, p.lambda2,
             _stream(pw))
     _ext.check(lib, err, "tile_step_update")
     fused_step_update.launches += 1
