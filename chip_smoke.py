@@ -31,9 +31,12 @@ error:
    width: ``tile_bwd`` on a uniform block, a spill block and a fuse=8 spec
    (2^25 buckets), the fused steps ``tile_step_grad`` (with and without the
    spill grid) and ``tile_step_update``, and the split path's ``loss_dual``
-   and ``ftrl_push``; requires two runs to be bitwise equal, the fused
-   steps to equal the split chain bitwise and their margins to equal the
-   plain versions' bitwise;
+   and ``ftrl_push``; requires two runs to be bitwise equal, ``tile_bwd``
+   to equal its order-exact plain version (each bucket summed in word
+   order) and ``backward_pushes`` at one channel bitwise, the fused steps
+   to equal the split chain bitwise, their margins and grad to equal the
+   plain versions' bitwise (the grad on the kernel's own dual), and the
+   update step's slots to equal ``ftrl_push`` on the plain gradient;
 9. writes a 4-block spill file (ovf_cap 1024, a hot key) and a 4-block
    ovf_cap=0 file from ``--seed`` and trains 2 passes with validation on each
    resolution: ``fused`` on the spill file through ``main`` (also predicting
@@ -46,7 +49,9 @@ error:
 10. times each training kernel per full-width block beside its bound, its
     plain version, the split chain, and (for ``tile_bwd``, also on the
     fuse=8 spec) the one-call yardstick ``torch.sparse.mm`` of the
-    transposed CSR;
+    transposed CSR; the device time of each launch of ``tile_bwd`` and the
+    two fused steps (``torch.profiler``) and ``backward_pushes`` at one
+    channel, the alternative design;
 11. holds the multi-channel kernels against their plain versions at full
     width on the uniform and the spill block: ``tile_pulls``/``tile_pushes``
     at ch 10, 17 and 18, ``tile_fm_step`` with and without the spill grid
@@ -185,6 +190,13 @@ def launch_ms(torch, fn, reps: int = 10) -> dict:
         torch.cuda.synchronize()
     return {e.key: e.device_time_total / reps / 1e3
             for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its parameter list, return type and
+    anonymous namespace: ``wh::fwd_rows<16, 8, wh::FwdMargins>``."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].removeprefix("void ").strip()
 
 
 def table_bytes(torch, bucket, width: int) -> int:
@@ -1427,7 +1439,7 @@ def main() -> int:
     pulls1_ms = time_ms(torch, lambda: tt.forward_pulls(pwd, w1, spec))
     ms2 = time_ms(torch, lambda: tt.forward_margins(pwd, wd, spec))
     fwd_parts = "  ".join(
-        f"{k.split('(')[0].split()[-1]} {v:.4f}" for k, v in
+        f"{kernel_name(k)} {v:.4f}" for k, v in
         launch_ms(torch, lambda: tt.forward_margins(pwd, wd, spec)).items())
     n_pairs = int(valid.sum().item())
     nbytes = (pwd.numel() * 4 + table_bytes(torch, bucket[valid], 1)
@@ -1474,18 +1486,21 @@ def main() -> int:
         a = tt.backward_grad(blk["pw"], dual, sp_)
         b = tt.backward_grad(blk["pw"], dual, sp_)
         plain = tt.backward_grad_plain(blk["pw"], dual, sp_)
+        pushes = tt.backward_pushes(blk["pw"], dual.view(-1, 1), sp_)[:, 0]
         torch.cuda.synchronize()
-        tol = grad_tolerance(torch, tt, blk["pw"], sp_, dual, dual)
         err = (a.double() - plain.double()).abs()
-        require(bool(torch.all(err <= tol)), f"tile_bwd {kind}: vs plain "
-                f"(max err {err.max().item():.3e})")
+        # both sum each bucket from 0 in word order
+        require(torch.equal(a, plain), f"tile_bwd {kind}: not bitwise equal "
+                f"to the order-exact plain version ({int((a != plain).sum())}"
+                f" buckets differ, largest {err.max().item():.3e})")
+        require(torch.equal(a, pushes), f"tile_bwd {kind}: != "
+                "backward_pushes at ch 1")
         require(torch.equal(a, b), f"tile_bwd {kind}: two runs differ")
         errs["tile_bwd"] = max(errs["tile_bwd"], err.max().item())
-        print(f"tile_bwd {kind} ({sp_.tiles} tiles, fuse {sp_.fuse}): max "
-              f"|kernel - plain| {err.max().item():.3e}  tolerance per "
-              f"bucket 4*k*2^-24*sum|bf16 dual| (largest "
-              f"{tol.max().item():.3e})  bitwise repeat ok")
-        del a, b, plain, tol, err
+        print(f"tile_bwd {kind} ({sp_.tiles} tiles, fuse {sp_.fuse}): = "
+              f"order-exact plain bitwise = backward_pushes at ch 1, "
+              f"bitwise repeat ok")
+        del a, b, plain, pushes, err
     del cases
     for kind, blk in (("uniform", uniform_block), ("spill", spill_block)):
         pw = blk["pw"]
@@ -1517,6 +1532,9 @@ def main() -> int:
             require(bool(torch.all(gerr <= gtol)),
                     f"tile_step_grad {kind} {loss}: grad vs plain (max err "
                     f"{gerr.max().item():.3e})")
+            require(torch.equal(gf, tt.backward_grad_plain(pw, dk, spec)),
+                    f"tile_step_grad {kind} {loss}: grad != the plain "
+                    "backward on its dual")
             derr = (dk.double() - dp.double()).abs()
             dk_p = tt.loss_dual_plain(ms_, labels_d, mask_d, loss, exact)
             derr_same = (dk.double() - dk_p.double()).abs()
@@ -1530,7 +1548,8 @@ def main() -> int:
                                     derr_same.max().item())
             print(f"tile_step_grad {kind} {loss} exact_dense={exact}: "
                   f"fused = split bitwise, bitwise repeat ok; vs plain "
-                  f"margins bitwise, grad "
+                  f"margins bitwise, grad = plain backward on the kernel's "
+                  f"dual bitwise, grad vs plain step "
                   f"{gerr.max().item():.3e} (dual {derr.max().item():.3e}; "
                   f"loss_dual vs plain on the same margins "
                   f"{derr_same.max().item():.3e}, tolerance 2^-20 relative)")
@@ -1551,7 +1570,11 @@ def main() -> int:
                                        "logit", handle)
     pp = slots0.clone()
     tt.ftrl_push_plain(pp, gk, handle)
+    pg = slots0.clone()
+    wdg = tt.ftrl_push(pg, tt.backward_grad_plain(pw, dk, spec), handle)
     torch.cuda.synchronize()
+    require(torch.equal(pg, ss) and torch.equal(wdg, wds),
+            "tile_step_update: slots != ftrl_push on the plain gradient")
     for m_, s_, wd2 in runs:
         require(torch.equal(m_, ms_) and torch.equal(s_, ss)
                 and torch.equal(wd2, wds),
@@ -1571,10 +1594,11 @@ def main() -> int:
     errs["ftrl_push"] = perr.max().item()
     print(f"tile_step_update: fused = split bitwise (margins, w/z/cg, "
           f"sum dw^2 {wds.item():.6g}), bitwise repeat ok; margins = plain "
-          f"bitwise; slots vs plain "
+          f"bitwise; slots = ftrl_push on the plain gradient bitwise; slots "
+          f"vs plain "
           f"{uerr.max().item():.3e}; ftrl_push vs plain on the same "
           f"gradient {perr.max().item():.3e} (per-slot f32 bound)")
-    del runs, ss, sp_, pp, uerr, utol, perr, gtol
+    del runs, ss, sp_, pp, pg, uerr, utol, perr, gtol
     print(f"phase {time.perf_counter() - t0:.1f} s")
 
     # -- 9. training through async_sgd.main ------------------------------------
@@ -1748,6 +1772,24 @@ def main() -> int:
           f"  bound {max(b8 / PEAK_BYTES_S, n8 / PEAK_F32_S) * 1e3:.4f} ms "
           f"({b8 / 1e6:.2f} MB)  card {smi}")
     del csr8, d8col, dual8
+    # the two launches of tile_bwd apart, the alternative design (the bucket
+    # index + segmented sum of backward_pushes at ch 1) and each launch of
+    # the fused steps
+    d1 = dual.view(-1, 1)
+    pushes1_ms = time_ms(torch, lambda: tt.backward_pushes(pw, d1, spec))
+    su = slots0.clone()
+    for what, fn in (
+            ("tile_bwd", lambda: tt.backward_grad(pw, dual, spec)),
+            ("tile_step_grad", lambda: tt.fused_step_grad(
+                pw, wd, labels_d, mask_d, spec, "logit", True)),
+            ("tile_step_update", lambda: tt.fused_step_update(
+                pw, su, labels_d, mask_d, spec, "logit", handle))):
+        parts = "  ".join(f"{kernel_name(k)} {v:.4f}"
+                          for k, v in launch_ms(torch, fn).items())
+        print(f"{what} device ms per launch: {parts}  card {smi}")
+    del su
+    print(f"backward_pushes at ch 1 (bucket index + segmented sum, the "
+          f"alternative design): {pushes1_ms:.4f} ms  card {smi}")
     sl = slots0.clone()
     g_t = tt.backward_grad(pw, dual, spec)
     m_t = tt.forward_margins(pw, wd, spec)

@@ -266,11 +266,11 @@ extern "C" {
 // 2.. the shipped design at (warps, 16-byte loads a lane in flight) =
 // 2: (16, 16), 3: (16, 8) (shipped), 4: (8, 16), R rows a CTA, windows of
 // at most cap words (0: as many as shared memory holds); scratch as
-// wh_tile_fwd's.
+// wh_tile_fwd's (scratch_words u32).
 int sweep_fwd(int variant, const int32_t* pw, const float* w,
-              unsigned* scratch, float* partial, float* margins, int T,
-              int SG, int GS, int C, int R, int tiles_per_cta, int cap,
-              void* stream) {
+              unsigned* scratch, long long scratch_words, float* partial,
+              float* margins, int T, int SG, int GS, int C, int R,
+              int tiles_per_cta, int cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const wh::FwdMargins out{margins};
   switch (variant) {
@@ -289,14 +289,14 @@ int sweep_fwd(int variant, const int32_t* pw, const float* w,
       return (int)cudaGetLastError();
     }
     case 2:
-      return wh::launch_fwd<16, 16>(pw, w, scratch, T, SG, GS, C, R, out, st,
-                                    cap);
+      return wh::launch_fwd<16, 16>(pw, w, scratch, scratch_words, T, SG,
+                                    GS, C, R, out, st, cap);
     case 3:
-      return wh::launch_fwd<16, 8>(pw, w, scratch, T, SG, GS, C, R, out, st,
-                                   cap);
+      return wh::launch_fwd<16, 8>(pw, w, scratch, scratch_words, T, SG,
+                                   GS, C, R, out, st, cap);
     case 4:
-      return wh::launch_fwd<8, 16>(pw, w, scratch, T, SG, GS, C, R, out, st,
-                                   cap);
+      return wh::launch_fwd<8, 16>(pw, w, scratch, scratch_words, T, SG,
+                                   GS, C, R, out, st, cap);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -91,7 +91,7 @@ def main() -> int:
         ms = cs.time_ms(torch, lambda: tt.forward_margins(pwd, wd, spec))
         dev_ms = cs.launch_ms(torch, lambda: tt.forward_margins(pwd, wd,
                                                                 spec))
-        parts = "  ".join(f"{k.split('(')[0].split()[-1]} {v:.4f}"
+        parts = "  ".join(f"{cs.kernel_name(k)} {v:.4f}"
                           for k, v in dev_ms.items())
         print(f"{name} block: forward_margins {ms:.4f} ms (= plain "
               f"bitwise; device: {parts})  card {smi}")
@@ -107,7 +107,9 @@ def main() -> int:
                         os.path.join(HERE, "torch_tile_fwd_sweep.cu")],
                        check=True, capture_output=True)
         lib = ctypes.CDLL(so)
-        lib.sweep_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+        lib.sweep_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                                  + [ctypes.c_longlong]
+                                  + [ctypes.c_void_p] * 2
                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.sweep_fwd.restype = ctypes.c_int
 
@@ -124,9 +126,10 @@ def main() -> int:
 
             def run():
                 err = lib.sweep_fwd(variant, pwd.data_ptr(), wd.data_ptr(),
-                                    scratch.data_ptr(), partial.data_ptr(),
-                                    out.data_ptr(), T, SG, spec.group,
-                                    spec.cap, rows, per_cta, cap, stream)
+                                    scratch.data_ptr(), scratch.numel(),
+                                    partial.data_ptr(), out.data_ptr(), T,
+                                    SG, spec.group, spec.cap, rows, per_cta,
+                                    cap, stream)
                 if err:
                     raise RuntimeError(f"variant {variant}: CUDA error {err}")
             return run

@@ -6,19 +6,17 @@ no JAX; ``tests/conftest.py`` imports JAX, so run it there as
     python -m pytest --noconftest tests/test_torch_kernels.py
 
 Tests marked ``cuda`` skip on a host without a CUDA device. The forward
-kernel and its plain version both sum each row from 0 in word order, so the
-margins (alone and inside the fused steps) are held to bitwise equality, and
-so is ``forward_pulls`` at one channel, a second word-order forward. The
-gradient's tolerance is the one test_torch_tilemm.py states for margins,
-4·k·2⁻²⁴·Σ|terms| over each bucket's k bf16 duals, since the kernel and
-``backward_grad_plain`` (one ``index_add_``) differ in f32 summation order.
-The FTRL slots
-after a step are held to the plain version within 1e-5·(1 + |x|): they
-start from the same gradient up to that bound, and the update adds a few
-f32 roundings (the CPU tests derive the full per-slot bound). The
-multi-channel pulls and pushes and their plain versions all sum each (row
-or bucket, channel) in word order, so they are held to bitwise equality,
-and so are the row and bucket indexes they build.
+and backward kernels and their plain versions all sum each row or bucket
+from 0 in word order, so the margins and the gradient (alone and inside the
+fused steps) are held to bitwise equality, and so are ``forward_pulls`` and
+``backward_pushes`` at one channel, a second word-order forward and
+backward. The FTRL slots after a fused step equal the push kernel's on the
+plain gradient bitwise, and the plain version's within 1e-5·(1 + |x|): the
+plain update's torch arithmetic and the kernel's may round apart (the CPU
+tests derive the full per-slot bound). The multi-channel pulls and pushes
+and their plain versions all sum each (row or bucket, channel) in word
+order, so they are held to bitwise equality, and so are the row and bucket
+indexes they build.
 """
 
 import os
@@ -213,14 +211,16 @@ def test_kernel_rejects_bad_cuda_operands(cuda):
     assert tt.forward_margins.launches == before
     assert torch.all(tt.forward_margins(pw, torch.ones(SPEC.nb, device=cuda),
                                         SPEC) == 0)
-    # the C entry refuses a missing span-mask scratch and a 0-row span
-    lib = tt._lib("tile_fwd", "wh_tile_fwd", [tt._P] * 4 + [tt._I] * 5
-                  + [tt._P])
+    # the C entry refuses a missing or too small scratch and a 0-row span
+    lib = tt._lib("tile_fwd", "wh_tile_fwd", [tt._P] * 3 + [tt._L, tt._P]
+                  + [tt._I] * 5 + [tt._P])
     scratch, rows = tt._span_scratch(SPEC, cuda)
     out = torch.empty(SPEC.block_rows, device=cuda)
     T, SG, _ = SPEC.pairs_shape
-    for ptr, r in ((None, rows), (scratch.data_ptr(), 0)):
-        err = lib.wh_tile_fwd(pw.data_ptr(), out.data_ptr(), ptr,
+    n = scratch.numel()
+    for ptr, words, r in ((None, n, rows), (scratch.data_ptr(), n, 0),
+                          (scratch.data_ptr(), T * SG * SPEC.n, rows)):
+        err = lib.wh_tile_fwd(pw.data_ptr(), out.data_ptr(), ptr, words,
                               out.data_ptr(), T, SG, SPEC.group, SPEC.cap, r,
                               tt._stream(pw))
         with pytest.raises(RuntimeError):
@@ -268,14 +268,6 @@ def test_predict_and_eval_on_cuda_match_cpu(cuda, tmp_path):
     assert abs(ag - ac) <= 1e-5
 
 
-def grad_tol(buckets, rows, dual):
-    """Per bucket 4·k·2⁻²⁴·Σ|bf16 dual| (k its pair count)."""
-    db = torch.from_numpy(dual).bfloat16().double().numpy()
-    mag = np.bincount(buckets, weights=np.abs(db)[rows], minlength=SPEC.nb)
-    cnt = np.bincount(buckets, minlength=SPEC.nb)
-    return 4 * np.maximum(cnt, 1) * 2.0 ** -24 * mag + 1e-30
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("skew", [False, True])
 def test_tile_bwd_matches_plain_and_is_bitwise_reproducible(cuda, skew):
@@ -289,10 +281,50 @@ def test_tile_bwd_matches_plain_and_is_bitwise_reproducible(cuda, skew):
     torch.cuda.synchronize()
     assert tt.backward_grad.launches == before + 2
     assert torch.equal(a, b)
-    plain = tt.backward_grad_plain(o["pw"], d, SPEC).cpu().numpy()
-    bucket, row, valid = tt.decode_pairs(o["pw"].cpu(), SPEC)
-    tol = grad_tol(bucket[valid].numpy(), row[valid].numpy(), dual)
-    assert np.all(np.abs(a.cpu().numpy() - plain) <= tol)
+    # both sum each bucket from 0 in word order: equal bit for bit
+    assert torch.equal(a, tt.backward_grad_plain(o["pw"], d, SPEC))
+
+
+def bwd_block(case, device):
+    """(pw, spec) of the backward's cases: SPEC, WIDE (22,528-word
+    segments), MANY (256 tiles), a WIDE block whose first bin of tile 0
+    holds 14,000 words, more than a dozen fills of a bin warp's 1,024-word
+    buffer, 3,000 of them on one bucket (so one bucket's words span several
+    fills), and SPEC with its segments shuffled within."""
+    if case == "shuffled":
+        return shuffled_block(device)
+    if case != "two_windows":
+        return index_block({"spec": "uniform", "wide": "wide",
+                            "many_tiles": "many_tiles"}[case], device)
+    rng = np.random.default_rng(80)
+    buckets = rng.integers(0, WIDE.nb, size=20000)
+    rows = rng.integers(0, WIDE.block_rows, size=20000)
+    span = tt.TILE // tt.BWD_SPANS
+    buckets[:11000] = rng.integers(0, span, 11000)
+    buckets[11000:14000] = span // 2
+    pw, _, _, n_ovf = tt.encode_block_capped(buckets, rows, WIDE, 64)
+    assert n_ovf == 0
+    return as_i32(pw, device), WIDE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spec", "wide", "many_tiles",
+                                  "two_windows", "shuffled"])
+def test_tile_bwd_equals_backward_pushes_at_one_channel(cuda, case):
+    """Two independent word-order backwards agree bit for bit: tile_bwd
+    (bins of buckets, a warp each) and backward_pushes at ch 1 (bucket index
+    + segmented sum), on SPEC, WIDE, MANY, a block whose bin takes many
+    buffer fills and a block whose segments are shuffled within; both equal
+    the plain version."""
+    pw, spec = bwd_block(case, cuda)
+    d = torch.from_numpy((np.random.default_rng(81).standard_normal(
+        spec.block_rows) * 0.4).astype(np.float32)).to(cuda)
+    before = tt.backward_grad.launches
+    g = tt.backward_grad(pw, d, spec)
+    torch.cuda.synchronize()
+    assert tt.backward_grad.launches == before + 1
+    assert torch.equal(g, tt.backward_pushes(pw, d.view(-1, 1), spec)[:, 0])
+    assert torch.equal(g, tt.backward_grad_plain(pw, d, spec))
 
 
 @pytest.mark.cuda
@@ -301,8 +333,9 @@ def test_tile_bwd_matches_plain_and_is_bitwise_reproducible(cuda, skew):
 @pytest.mark.parametrize("skew", [False, True])
 def test_fused_step_grad_equals_split_bitwise_on_cuda(cuda, loss, skew):
     """The fused step kernel equals the split chain (tile_fwd → loss_dual
-    → tile_bwd) bit for bit, repeats bitwise, and its margins equal its
-    plain version's bitwise (both sum each row in word order)."""
+    → tile_bwd) bit for bit, repeats bitwise, and its margins and its grad
+    (on the kernel's own dual) equal the plain versions' bitwise (all sum
+    each row and bucket in word order)."""
     o = step_operands(50 + skew, cuda, skew)
     exact = loss in ("logit", "square_hinge")
     sp = (tt.spill_margin_rows(o["w"], o["ob"], o["orow"], SPEC) if skew
@@ -322,6 +355,8 @@ def test_fused_step_grad_equals_split_bitwise_on_cuda(cuda, loss, skew):
     assert torch.equal(mf, mf2) and torch.equal(gf, gf2)
     mp, _ = tt.fused_step_grad_plain(*args, spill_margins=sp)
     assert torch.equal(mf, mp)
+    dk = tt.loss_dual(mf, o["labels"], o["mask"], loss, exact)
+    assert torch.equal(gf, tt.backward_grad_plain(o["pw"], dk, SPEC))
 
 
 @pytest.mark.cuda
@@ -329,7 +364,8 @@ def test_fused_step_update_equals_split_bitwise_on_cuda(cuda):
     """The in-place FTRL step equals tile_fwd → loss_dual → tile_bwd →
     ftrl_push bit for bit (margins, all three planes, Σ(Δw)²), repeats
     bitwise, and agrees with its plain version: margins bitwise, slots
-    within 1e-5·(1 + |x|)."""
+    bitwise with the push kernel on the plain gradient, and within
+    1e-5·(1 + |x|) of the plain update."""
     o = step_operands(54, cuda)
     runs = []
     for _ in range(2):
@@ -349,6 +385,9 @@ def test_fused_step_update_equals_split_bitwise_on_cuda(cuda):
     mp, _ = tt.fused_step_update_plain(o["pw"], p, o["labels"], o["mask"],
                                        SPEC, "logit", HANDLE)
     assert torch.equal(ms, mp)
+    q = o["slots"].clone()
+    wq = tt.ftrl_push(q, tt.backward_grad_plain(o["pw"], d, SPEC), HANDLE)
+    assert torch.equal(q, s) and torch.equal(wq, wd)
     err = (s - p).abs().cpu().numpy()
     assert np.all(err <= 1e-5 * (1 + np.abs(p.cpu().numpy())))
 
@@ -375,6 +414,61 @@ def test_training_kernels_reject_bad_cuda_operands(cuda, bad):
             tt.fused_step_grad(o["pw"], o["w"], o["labels"], o["mask"], SPEC,
                                "logit", True, spill_margins=o["w"])
     assert launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["tile_bwd", "step_grad", "step_update"])
+@pytest.mark.parametrize("bad", ["scratch_missing", "scratch_small",
+                                 "spans"])
+def test_backward_c_entries_refuse_bad_scratch(cuda, entry, bad):
+    """The backward's C entries refuse a missing scratch, one too small for
+    the packed values and span starts (before any launch: the update step
+    leaves the slots as they were), and a span count that is not a power of
+    two."""
+    o = step_operands(59, cuda)
+    scratch, rows = tt._span_scratch(SPEC, cuda)
+    T, SG, _ = SPEC.pairs_shape
+    ptr, words, spans = scratch.data_ptr(), scratch.numel(), tt.BWD_SPANS
+    if bad == "scratch_missing":
+        ptr = None
+    elif bad == "scratch_small":
+        words = T * SG * SPEC.n          # the packed values, no span starts
+    else:
+        spans = 3
+    geo = (T, SG, SPEC.group, SPEC.cap)
+    out = torch.empty(SPEC.nb, device=cuda)
+    dual = torch.empty(SPEC.block_rows, dtype=torch.bfloat16, device=cuda)
+    margins = torch.empty(SPEC.block_rows, device=cuda)
+    part = torch.empty(T * tt.BWD_SPANS, device=cuda)
+    slots = o["slots"].clone()
+    P, L, I, F = tt._P, tt._L, tt._I, tt._F
+    st = tt._stream(o["pw"])
+    if entry == "tile_bwd":
+        lib = tt._lib("tile_bwd", "wh_tile_bwd",
+                      [P] * 3 + [L, P] + [I] * 5 + [P])
+        err = lib.wh_tile_bwd(o["pw"].data_ptr(), o["labels"].data_ptr(),
+                              ptr, words, out.data_ptr(), *geo, spans, st)
+    elif entry == "step_grad":
+        lib = tt._lib("tile_step", "wh_step_grad",
+                      [P] * 6 + [L] + [P] * 3 + [I] * 8 + [P])
+        err = lib.wh_step_grad(
+            o["pw"].data_ptr(), o["w"].data_ptr(), o["labels"].data_ptr(),
+            o["mask"].data_ptr(), None, ptr, words, margins.data_ptr(),
+            dual.data_ptr(), out.data_ptr(), *geo, rows, spans, 0, 1, st)
+    else:
+        lib = tt._lib("tile_step", "wh_step_update",
+                      [P] * 7 + [L] + [P] * 3 + [I] * 7 + [F] * 4 + [P])
+        err = lib.wh_step_update(
+            o["pw"].data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
+            slots[2].data_ptr(), o["labels"].data_ptr(),
+            o["mask"].data_ptr(), ptr, words, margins.data_ptr(),
+            dual.data_ptr(), part.data_ptr(), *geo, rows, spans, 0, 0.1,
+            1.0, 0.05, 0.01, st)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        _ext.check(lib, err, entry)
+    if entry == "step_update" and bad != "spans":
+        assert torch.equal(slots, o["slots"])     # nothing ran
 
 
 @pytest.mark.cuda

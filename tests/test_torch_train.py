@@ -156,6 +156,56 @@ def test_backward_grad_matches_jax(case):
     assert np.count_nonzero(got) > 0.9 * len(np.unique(kb))
 
 
+def grad_word_order_fold(pw, spec, dual):
+    """Per bucket, f32 adds of bf16(dual[row]) from 0, one word at a time in
+    word order (the order decode_pairs flattens the words in)."""
+    b, r, valid = tt.decode_pairs(i32(pw), spec)
+    db = f32(dual).to(torch.bfloat16).float().numpy()
+    out = np.zeros(spec.nb, np.float32)
+    for bk, rw in zip(b[valid].tolist(), r[valid].tolist()):
+        out[bk] = np.float32(out[bk] + db[rw])
+    return out
+
+
+@pytest.mark.parametrize("case", ["uniform", "skew", "spill"])
+def test_backward_grad_plain_sums_in_word_order_bitwise(case):
+    """The order-exact plain backward equals a Python word-order fold, the
+    single index_add_ over all words that the CPU ran before (it adds in
+    index order too) and backward_pushes_plain at one channel, bit for bit:
+    on a uniform block, a skewed one (one bucket holding 200 words, within
+    cap) and a spilling one; with spill, backward_grad adds the spill
+    pairs' duals to exactly these bits."""
+    if case == "skew":
+        rng = np.random.default_rng(45)
+        buckets = np.concatenate([rng.integers(0, SPEC.nb, 3000),
+                                  np.full(200, 5 * tt.TILE // 4)])
+        rows = rng.integers(0, SPEC.block_rows, len(buckets))
+        pw, ob, orow, n_ovf = tt.encode_block_capped(buckets, rows, SPEC,
+                                                     OVF_CAP)
+        assert n_ovf == 0
+    else:
+        _, _, pw, ob, orow, n_ovf = block(43, skew=case == "spill")
+    dual = (np.random.default_rng(44).standard_normal(SPEC.block_rows)
+            * 0.5).astype(np.float32)
+    dual[::7] = 0.0                      # exact zeros among the terms
+    P, D = i32(pw), f32(dual)
+    got = tt.backward_grad_plain(P, D, SPEC)
+    assert got.numpy().tobytes() == grad_word_order_fold(pw, SPEC,
+                                                         dual).tobytes()
+    bucket, row, valid = tt.decode_pairs(P, SPEC)
+    one_call = torch.zeros(SPEC.nb).index_add_(
+        0, bucket[valid], D.to(torch.bfloat16).float()[row[valid]])
+    assert torch.equal(got, one_call)
+    assert torch.equal(got, tt.backward_pushes_plain(P, D.view(-1, 1),
+                                                     SPEC)[:, 0])
+    if case == "skew":
+        assert torch.count_nonzero(bucket[valid] == 5 * tt.TILE // 4) == 200
+    sp = (i32(ob), i32(orow)) if case == "spill" else (None, None)
+    want = (tt.spill_grad_scatter(got.clone(), D, *sp, SPEC)
+            if case == "spill" else got)
+    assert torch.equal(tt.backward_grad(P, D, SPEC, *sp), want)
+
+
 def test_spill_grad_scatter_matches_jax_and_is_reproducible():
     rng = np.random.default_rng(42)
     g = rng.standard_normal(SPEC.nb).astype(np.float32)

@@ -20,16 +20,17 @@
 extern "C" {
 
 // margins (S*8192,) f32 from pw (T, SG, GS*C) i32 and w (T*16384,) f32,
-// with R rows a CTA; scratch holds one u32 per word of pw, then S * T *
-// ceil(C/1024) * (ceil(8192/R) + 1) u16 of span starts.
+// with R rows a CTA; scratch (scratch_words u32) holds one u32 per word of
+// pw, then S * T * ceil(C/1024) * (ceil(8192/R) + 1) u16 of span starts.
 // Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after each launch (0 = success).
+// cudaGetLastError() after each launch (0 = success), cudaErrorInvalidValue
+// for a missing or too small scratch.
 int wh_tile_fwd(const int32_t* pw, const float* w, unsigned* scratch,
-                float* margins, int T, int SG, int GS, int C, int R,
-                void* stream) {
+                long long scratch_words, float* margins, int T, int SG,
+                int GS, int C, int R, void* stream) {
   return wh::launch_fwd<wh::ROW_WARPS, wh::ROW_U>(
-      pw, w, scratch, T, SG, GS, C, R, wh::FwdMargins{margins},
-      static_cast<cudaStream_t>(stream));
+      pw, w, scratch, scratch_words, T, SG, GS, C, R,
+      wh::FwdMargins{margins}, static_cast<cudaStream_t>(stream));
 }
 
 const char* wh_error_string(int err) {

@@ -437,21 +437,35 @@ fwd_rows(const unsigned* __restrict__ vals,
   for (int d = tid; d < rn; d += NT) epi(s, r0 + d, acc[d]);
 }
 
-// Launch 1. and 2. on `st` with R rows a CTA. scratch holds vals (one u32
-// per word of pw) then the chunk offsets (S * T * ceil(C/1024) *
-// (ceil(8192/R) + 1) u16). A window holds as many words as the shared
-// memory left over from the row sums and counters; each warp's chunks are
-// sized so that one window covers the subblock when its words fit;
-// cap_limit > 0 caps a window lower (the design sweep). Returns
-// cudaGetLastError() after each launch (0 = success).
+// u32 words of the scratch of a tile pass that sorts each 1024-word chunk
+// into NX spans (the forward's row spans, the backward's bins): one packed
+// value per word of pw, then the u16 span starts of every chunk.
+__host__ __device__ inline long long span_scratch_words(int T, int SG,
+                                                        int GS, int C,
+                                                        int NX) {
+  const long long S = (long long)SG * GS, nch = (C + 1023) / 1024;
+  return (long long)T * S * C + (S * T * nch * (NX + 1) + 1) / 2;
+}
+
+// Launch 1. and 2. on `st` with R rows a CTA. scratch (scratch_words u32)
+// holds vals (one u32 per word of pw) then the chunk offsets (S * T *
+// ceil(C/1024) * (ceil(8192/R) + 1) u16). A window holds as many words as
+// the shared memory left over from the row sums and counters; each warp's
+// chunks are sized so that one window covers the subblock when its words
+// fit; cap_limit > 0 caps a window lower (the design sweep). Returns
+// cudaGetLastError() after each launch (0 = success), or
+// cudaErrorInvalidValue for a missing or too small scratch or a bad span.
 template <int NW, int U, class Epi>
 inline int launch_fwd(const int32_t* pw, const float* w, unsigned* scratch,
-                      int T, int SG, int GS, int C, int R, const Epi& epi,
-                      cudaStream_t st, int cap_limit = 0) {
+                      long long scratch_words, int T, int SG, int GS, int C,
+                      int R, const Epi& epi, cudaStream_t st,
+                      int cap_limit = 0) {
   if (scratch == nullptr || R < 2 || R > RSUB || C % 128 != 0 ||
       C >= 65536)
     return (int)cudaErrorInvalidValue;
   const int NR = (RSUB + R - 1) / R, S = SG * GS, nch = (C + 1023) / 1024;
+  if (scratch_words < span_scratch_words(T, SG, GS, C, NR))
+    return (int)cudaErrorInvalidValue;
   unsigned* vals = scratch;
   unsigned short* offs =
       reinterpret_cast<unsigned short*>(scratch + (long long)T * S * C);

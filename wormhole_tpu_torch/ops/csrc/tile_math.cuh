@@ -1,6 +1,6 @@
 // Elementwise train-step math shared by every kernel that needs it: the four
 // loss duals with the zero-dual nudge, and the FTRL slot update with its
-// per-tile weight-delta sum.
+// per-bin weight-delta sum.
 //
 // The fused step (tile_step.cu) runs this math inside its phases and the
 // split path runs it through the small elementwise launches wh_loss_dual and
@@ -76,44 +76,51 @@ __device__ __forceinline__ void ftrl_update(const Ftrl& p, float w, float z,
   *cg_new = c;
 }
 
-// Sum of `v` over the block in one fixed order: a butterfly inside each
-// warp, then warp 0 adds the warp sums in warp order. `red` holds one float
-// per warp. Returns the sum in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
+// The FTRL update of one bin of n buckets, in place on its w/z/cg plane
+// slices, from the bin's gradient (shared memory in the fused step, device
+// memory in the split push: the same loop either way), by one warp: lane l
+// takes buckets l, l + 32, ..., loading four of them before it updates
+// them, so a lane has four buckets' plane reads in flight. Writes the bin's
+// Σ(w' - w)² to *wdelta2_out: each lane adds its buckets' terms in bucket
+// order, and the lanes' sums are added by one butterfly, so both paths
+// round alike.
+__device__ __forceinline__ void ftrl_warp(const Ftrl& p,
+                                          const float* __restrict__ grad,
+                                          float* __restrict__ w,
+                                          float* __restrict__ z,
+                                          float* __restrict__ cg,
+                                          float* wdelta2_out, int n) {
+  constexpr int B = 4;                             // buckets in flight
+  const int lane = threadIdx.x & 31;
   float acc = 0.f;
-  if (threadIdx.x == 0)
-    for (int k = 0; k < (int)(blockDim.x >> 5); ++k) acc += red[k];
-  __syncthreads();
-  return acc;
-}
-
-// The FTRL update of one 16384-bucket tile, in place on its w/z/cg plane
-// slices, from that tile's gradient (shared memory in the fused step,
-// device memory in the split push: the same loop either way). Writes the
-// tile's Σ(w' - w)² to *wdelta2_out. Every CTA that calls it has the same
-// block size, so the reduction order is the same on both paths.
-__device__ __forceinline__ void ftrl_tile(const Ftrl& p,
-                                          const float* grad, float* w,
-                                          float* z, float* cg,
-                                          float* wdelta2_out, float* red,
-                                          int tile_size) {
-  float acc = 0.f;
-  for (int b = threadIdx.x; b < tile_size; b += blockDim.x) {
-    const float w0 = w[b];
-    float wn, zn, cn;
-    ftrl_update(p, w0, z[b], cg[b], grad[b], &wn, &zn, &cn);
-    w[b] = wn;
-    z[b] = zn;
-    cg[b] = cn;
-    const float d = wn - w0;
-    acc += d * d;
+  for (int b0 = lane; b0 < n; b0 += 32 * B) {
+    float w0[B], z0[B], c0[B], g0[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int b = b0 + 32 * u;
+      if (b < n) {
+        w0[u] = w[b];
+        z0[u] = z[b];
+        c0[u] = cg[b];
+        g0[u] = grad[b];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int b = b0 + 32 * u;
+      if (b < n) {
+        float wn, zn, cn;
+        ftrl_update(p, w0[u], z0[u], c0[u], g0[u], &wn, &zn, &cn);
+        w[b] = wn;
+        z[b] = zn;
+        cg[b] = cn;
+        const float d = wn - w0[u];
+        acc += d * d;
+      }
+    }
   }
-  const float s = block_sum(acc, red);
-  if (threadIdx.x == 0) *wdelta2_out = s;
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) *wdelta2_out = acc;
 }
 
 }  // namespace wh

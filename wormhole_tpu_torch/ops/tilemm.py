@@ -268,31 +268,37 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _word_scratch(pw: torch.Tensor) -> torch.Tensor:
-    """One bf16 per pair word: csrc/tile_bwd.cuh's word-ordered duals."""
-    return torch.empty(pw.numel(), dtype=torch.bfloat16, device=pw.device)
+# bins of 512 buckets a tile of csrc/tile_bwd.cuh's backward: one warp each,
+# 8,192 at full width. The split push (``ftrl_push``) and the fused update
+# sum Σ(Δw)² over the same bins, so the count is part of both paths' bits;
+# the kernels take no other.
+BWD_SPANS = 32
 
 
 def _span_scratch(spec: TileSpec, device) -> Tuple[torch.Tensor, int]:
-    """(scratch, rows a span) of csrc/tile_fwd.cuh: each subblock's 8192
-    rows cut into ceil(SMs / subblocks) spans, one CTA each, so the (span,
-    subblock) grid fills the card once (11 spans of 745 rows, 132 CTAs, at
-    12 subblocks on an H100). The scratch holds the tile pass's packed
-    value of every pair word (17.3 MB at full width) and the span starts of
-    every 1024-word chunk (0.15 MB). Each row is summed in word order
-    whatever the span, so the result does not depend on it."""
+    """(scratch, rows a span) of the tile passes of csrc/tile_fwd.cuh and
+    csrc/tile_bwd.cuh: each subblock's 8192 rows cut into ceil(SMs /
+    subblocks) spans, one CTA each, so the forward's (span, subblock) grid
+    fills the card once (11 spans of 745 rows, 132 CTAs, at 12 subblocks on
+    an H100); each tile's buckets into ``BWD_SPANS`` bins. The scratch holds
+    a tile pass's packed value of every pair word (17.3 MB at full width)
+    and the span or bin starts of every 1024-word chunk (0.4 MB), sized for
+    whichever pass cuts more, so the fused steps run both passes in one
+    buffer. Each row is summed in word order whatever the span, so the
+    result does not depend on the rows."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = -(-RSUB // max(1, -(-sms // spec.subblocks)))
     T, SG, N = spec.pairs_shape
-    offs = (spec.subblocks * T * -(-spec.cap // 1024)
-            * (-(-RSUB // rows) + 1))
+    spans = max(-(-RSUB // rows), BWD_SPANS)
+    offs = spec.subblocks * T * -(-spec.cap // 1024) * (spans + 1)
     n = T * SG * N + -(-offs // 2)
     return torch.empty(n, dtype=torch.int32, device=device), rows
 
@@ -353,15 +359,16 @@ def forward_margins_plain(pw: torch.Tensor, w: torch.Tensor,
 
 def _launch_tile_fwd(pw: torch.Tensor, w: torch.Tensor,
                      spec: TileSpec) -> torch.Tensor:
-    lib = _lib("tile_fwd", "wh_tile_fwd", [_P] * 4 + [_I] * 5 + [_P])
+    lib = _lib("tile_fwd", "wh_tile_fwd", [_P] * 3 + [_L, _P] + [_I] * 5
+               + [_P])
     T, SG, _ = spec.pairs_shape
     scratch, rows = _span_scratch(spec, pw.device)
     margins = torch.empty(spec.block_rows, dtype=torch.float32,
                           device=pw.device)
     with torch.cuda.device(pw.device):
         err = lib.wh_tile_fwd(pw.data_ptr(), w.data_ptr(), scratch.data_ptr(),
-                              margins.data_ptr(), T, SG, spec.group,
-                              spec.cap, rows, _stream(pw))
+                              scratch.numel(), margins.data_ptr(), T, SG,
+                              spec.group, spec.cap, rows, _stream(pw))
     _ext.check(lib, err, "tile_fwd")
     return margins
 
@@ -613,24 +620,26 @@ def ftrl_push(slots: torch.Tensor, grad: torch.Tensor,
     needs and the in-place update can no longer compute afterwards.
 
     On a CUDA tensor it launches ``wh_ftrl_push`` (csrc/tile_step.cu): one
-    CTA per tile runs the same ``__device__`` update and the same per-tile
-    Σ(Δw)² reduction as the fused update step, so split and fused agree
-    bitwise; on a CPU tensor, and only there, ``ftrl_push_plain``."""
+    warp per bin of a tile (``BWD_SPANS`` a tile) runs the same
+    ``__device__`` update and the same per-bin Σ(Δw)² reduction as the
+    fused update step's epilogue, and the (tiles·bins,) partials are summed
+    alike, so split and fused agree bitwise; on a CPU tensor, and only
+    there, ``ftrl_push_plain``."""
     nb = grad.shape[0]
     _check_slots(slots, nb, grad.device)
     _check("grad", grad, torch.float32, (nb,), grad.device)
     if grad.device.type != "cuda":
         return ftrl_push_plain(slots, grad, handle)
     lib = _lib("tile_step", "wh_ftrl_push",
-               [_P] * 5 + [_I] + [_F] * 4 + [_P])
+               [_P] * 5 + [_I] * 2 + [_F] * 4 + [_P])
     T = nb // TILE
-    part = torch.empty(T, dtype=torch.float32, device=grad.device)
+    part = torch.empty(T * BWD_SPANS, dtype=torch.float32, device=grad.device)
     p, lr = handle.penalty, handle.lr
     with torch.cuda.device(grad.device):
         err = lib.wh_ftrl_push(grad.data_ptr(), slots[0].data_ptr(),
                                slots[1].data_ptr(), slots[2].data_ptr(),
-                               part.data_ptr(), T, lr.alpha, lr.beta,
-                               p.lambda1, p.lambda2, _stream(grad))
+                               part.data_ptr(), T, BWD_SPANS, lr.alpha,
+                               lr.beta, p.lambda1, p.lambda2, _stream(grad))
     _ext.check(lib, err, "ftrl_push")
     ftrl_push.launches += 1
     return part.sum()
@@ -667,12 +676,12 @@ def spill_grad_scatter(g: torch.Tensor, dual_rows: torch.Tensor,
 def backward_grad_plain(pw: torch.Tensor, dual_rows: torch.Tensor,
                         spec: TileSpec) -> torch.Tensor:
     """grad (nb,) f32 = per bucket, the sum of bf16(dual[row]) over its
-    pair words — decode, gather and ``index_add_`` in plain torch."""
-    bucket, row, valid = decode_pairs(pw, spec)
-    db = dual_rows.to(torch.bfloat16).to(torch.float32)
-    return torch.zeros(spec.nb, dtype=torch.float32,
-                       device=pw.device).index_add_(0, bucket[valid],
-                                                    db[row[valid]])
+    pair words, from 0 in f32, left to right in word order, on any device:
+    ``backward_pushes_plain``'s sums at one channel."""
+    _check_bwd(pw, dual_rows, spec)
+    start, kb, kr = _word_csr(pw, spec, by_row=False)
+    return _word_order_sums(start, kb, kr, dual_rows.view(-1, 1),
+                            spec.nb)[:, 0]
 
 
 def _check_pw(pw: torch.Tensor, spec: TileSpec) -> None:
@@ -697,19 +706,25 @@ def backward_grad(pw: torch.Tensor, dual_rows: torch.Tensor,
     (#3): the Hopper kernel reads the pair bytes as they are, whatever the
     spec's K. On a CUDA tensor it launches the kernel (counted in
     ``backward_grad.launches``) or raises; on a CPU tensor, and only there,
-    it runs ``backward_grad_plain``. Each bucket is summed in one fixed
-    order, the same as the fused step's backward, so the result is the same
-    bits on every run."""
+    it runs ``backward_grad_plain``. The kernel gives each warp a bin of
+    512 of one tile's buckets, owned outright: a tile pass gathers
+    bf16(dual) for every word and sorts each 1024-word chunk by bin, and
+    the bin's warp reads only its words and sums each bucket from 0 in
+    word order, with no float atomics, so it equals the plain version
+    bitwise, gives the same bits on every run and runs the same code as the
+    fused steps."""
     _check_bwd(pw, dual_rows, spec)
     if pw.device.type == "cuda":
-        lib = _lib("tile_bwd", "wh_tile_bwd", [_P] * 4 + [_I] * 4 + [_P])
+        lib = _lib("tile_bwd", "wh_tile_bwd", [_P] * 3 + [_L, _P] + [_I] * 5
+                   + [_P])
         grad = torch.empty(spec.nb, dtype=torch.float32, device=pw.device)
-        dv = _word_scratch(pw)
+        scratch, _ = _span_scratch(spec, pw.device)
         T, SG, _ = spec.pairs_shape
         with torch.cuda.device(pw.device):
             err = lib.wh_tile_bwd(pw.data_ptr(), dual_rows.data_ptr(),
-                                  dv.data_ptr(), grad.data_ptr(), T, SG,
-                                  spec.group, spec.cap, _stream(pw))
+                                  scratch.data_ptr(), scratch.numel(),
+                                  grad.data_ptr(), T, SG, spec.group,
+                                  spec.cap, BWD_SPANS, _stream(pw))
         _ext.check(lib, err, "tile_bwd")
         backward_grad.launches += 1
     else:
@@ -757,8 +772,9 @@ def fused_step_grad(pw: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     then the row spans with the boundary: spill add, dual, nudge, bf16 dual
     grid, as their epilogue) sums each row in word order as
     ``forward_margins`` does, so the margins equal
-    ``fused_step_grad_plain``'s bitwise; then the backward. Its margins and
-    grad equal the split chain forward_margins → loss_dual → backward_grad
+    ``fused_step_grad_plain``'s bitwise; then the backward,
+    ``backward_grad``'s kernel on the bf16 dual grid. Its margins and grad
+    equal the split chain forward_margins → loss_dual → backward_grad
     bitwise."""
     key = loss_key(loss)
     _check_operands(pw, w, spec)
@@ -769,21 +785,20 @@ def fused_step_grad(pw: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         return fused_step_grad_plain(pw, w, labels, mask, spec, key,
                                      exact_dense, spill_margins)
     lib = _lib("tile_step", "wh_step_grad",
-               [_P] * 10 + [_I] * 7 + [_P])
+               [_P] * 6 + [_L] + [_P] * 3 + [_I] * 8 + [_P])
     dev = pw.device
     scratch, rows = _span_scratch(spec, dev)
     margins = torch.empty(spec.block_rows, dtype=torch.float32, device=dev)
     dual = torch.empty(spec.block_rows, dtype=torch.bfloat16, device=dev)
-    dv = _word_scratch(pw)
     grad = torch.empty(spec.nb, dtype=torch.float32, device=dev)
     T, SG, _ = spec.pairs_shape
     with torch.cuda.device(dev):
         err = lib.wh_step_grad(
             pw.data_ptr(), w.data_ptr(), labels.data_ptr(), mask.data_ptr(),
-            _ptr(spill_margins), scratch.data_ptr(), margins.data_ptr(),
-            dual.data_ptr(), dv.data_ptr(), grad.data_ptr(), T, SG,
-            spec.group, spec.cap, rows, LOSS_IDS[key], int(exact_dense),
-            _stream(pw))
+            _ptr(spill_margins), scratch.data_ptr(), scratch.numel(),
+            margins.data_ptr(), dual.data_ptr(), grad.data_ptr(), T, SG,
+            spec.group, spec.cap, rows, BWD_SPANS, LOSS_IDS[key],
+            int(exact_dense), _stream(pw))
     _ext.check(lib, err, "tile_step_grad")
     fused_step_grad.launches += 1
     return margins, grad
@@ -813,14 +828,15 @@ def fused_step_update(pw: torch.Tensor, slots: torch.Tensor,
 
     The wrapper of ``wh_step_update`` (csrc/tile_step.cu), which replaces
     the TPU kernel ``_make_step_kernel`` + ``_GradSink`` built by
-    ``_build_step_update`` (#7): each tile's gradient stays in shared
-    memory and goes straight into the update, so the (nb,) gradient never
-    exists in device memory. On a CUDA tensor it launches the step (counted
-    in ``fused_step_update.launches``) or raises; on a CPU tensor, and only
-    there, ``fused_step_update_plain``. Its forward runs the boundary as
-    its epilogue and sums each row in word order, so the margins equal the
-    plain version's bitwise. Margins and slots equal the split chain's
-    (… → backward_grad → ftrl_push) bitwise."""
+    ``_build_step_update`` (#7): each bin's gradient stays in shared
+    memory and goes straight into the update, so the (nb,) gradient
+    never exists in device memory. On a CUDA tensor it launches the step
+    (counted in ``fused_step_update.launches``) or raises; on a CPU tensor,
+    and only there, ``fused_step_update_plain``. Its forward and backward
+    sum each row and bucket in word order, so the margins and the
+    gradient the update reads equal the plain versions' bitwise. Margins,
+    slots and Σ(Δw)² equal the split chain's (… → backward_grad →
+    ftrl_push) bitwise."""
     key = loss_key(loss)
     _check_slots(slots, spec.nb, pw.device)
     _check_operands(pw, slots[0], spec)
@@ -829,23 +845,22 @@ def fused_step_update(pw: torch.Tensor, slots: torch.Tensor,
         return fused_step_update_plain(pw, slots, labels, mask, spec, key,
                                        handle)
     lib = _lib("tile_step", "wh_step_update",
-               [_P] * 11 + [_I] * 6 + [_F] * 4 + [_P])
+               [_P] * 7 + [_L] + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_P])
     dev = pw.device
     scratch, rows = _span_scratch(spec, dev)
     margins = torch.empty(spec.block_rows, dtype=torch.float32, device=dev)
     dual = torch.empty(spec.block_rows, dtype=torch.bfloat16, device=dev)
-    dv = _word_scratch(pw)
     T, SG, _ = spec.pairs_shape
-    part = torch.empty(T, dtype=torch.float32, device=dev)
+    part = torch.empty(T * BWD_SPANS, dtype=torch.float32, device=dev)
     p, lr = handle.penalty, handle.lr
     with torch.cuda.device(dev):
         err = lib.wh_step_update(
             pw.data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
             slots[2].data_ptr(), labels.data_ptr(), mask.data_ptr(),
-            scratch.data_ptr(), margins.data_ptr(), dual.data_ptr(),
-            dv.data_ptr(), part.data_ptr(), T, SG, spec.group, spec.cap,
-            rows, LOSS_IDS[key], lr.alpha, lr.beta, p.lambda1, p.lambda2,
-            _stream(pw))
+            scratch.data_ptr(), scratch.numel(), margins.data_ptr(),
+            dual.data_ptr(), part.data_ptr(), T, SG, spec.group, spec.cap,
+            rows, BWD_SPANS, LOSS_IDS[key], lr.alpha, lr.beta, p.lambda1,
+            p.lambda2, _stream(pw))
     _ext.check(lib, err, "tile_step_update")
     fused_step_update.launches += 1
     return margins, part.sum()
