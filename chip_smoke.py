@@ -58,10 +58,14 @@ error:
     (logit and hinge), ``tile_wd_step`` and the ``fm_boundary``/
     ``wd_boundary`` launches; requires two runs bitwise equal, the fused
     steps equal to the split chain bitwise, ``tile_pulls`` and
-    ``tile_pushes`` equal to their order-exact plain versions bitwise, and
-    the pulls' row index (``pull_index``, also on the 2,048-tile fuse=8
+    ``tile_pushes`` equal to their order-exact plain versions bitwise, the
+    pulls' row index (``pull_index``, also on the 2,048-tile fuse=8
     spec) and the pushes' bucket index (``push_index``) equal to their
-    plain versions exactly;
+    plain versions exactly, and the wide&deep boundary (logit and hinge)
+    equal to its order-exact plain version bitwise: margins, f32 push rows,
+    the fused step's bf16 push rows and every MLP gradient, also on 4,096
+    rows at hidden (1024, 512, 256), whose tile the kernel keeps in device
+    memory, and at ten layers of 8;
 12. writes another spill file and ovf_cap=0 file and trains FM and
     wide&deep 2 passes with validation: through each model's ``main`` on
     the fused resolution, then in process on ``fused`` and ``split`` on both
@@ -75,10 +79,11 @@ error:
 13. times each multi-channel kernel per full-width block beside its bound
     (the pull table's bytes counted over the sectors the block reaches),
     its plain version, the split chain (fused steps) and the one-call
-    yardstick ``torch.sparse.mm`` (#4, #5), the device time of each launch
-    of ``tile_pulls`` (its row index and its segmented sum apart, with
-    ``torch.profiler``), and the whole FM and wide&deep train step with the
-    dense AdaGrad update;
+    yardstick ``torch.sparse.mm`` (#4, #5) or, for ``wd_boundary``, the
+    autograd version (cuBLAS GEMMs), the device time of each launch of
+    ``tile_pulls`` (its row index and its segmented sum apart), of
+    ``wd_boundary`` and of ``tile_wd_step`` (``torch.profiler``), and the
+    whole FM and wide&deep train step with the dense AdaGrad update;
 14. prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
     as the last line ``{"ok": true, "device": {...}}``.
 
@@ -179,7 +184,10 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
 
 def launch_ms(torch, fn, reps: int = 10) -> dict:
     """Device ms per call of each kernel that ``fn`` launches, by kernel
-    name, from ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    name, from ``torch.profiler`` over ``reps`` calls after a warm-up.
+    Prints a flag line for each kernel whose recorded launches are not a
+    whole number a call: the profiler dropped records, and that kernel's
+    time per call reads low."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -188,8 +196,15 @@ def launch_ms(torch, fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.device_time_total / reps / 1e3
-            for e in prof.key_averages() if e.device_time_total > 0}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        out[e.key] = e.device_time_total / reps / 1e3
+        if e.count % reps:
+            print(f"torch.profiler dropped records: {kernel_name(e.key)} "
+                  f"recorded {e.count} launches over {reps} calls")
+    return out
 
 
 def kernel_name(key: str) -> str:
@@ -347,7 +362,8 @@ def flip_tol(torch, keys, idx, a, b, n):
                        device=a.device).index_add_(0, keys, d[idx])
 
 
-def multi_kernel_checks(torch, tt, spec, blocks, many, rng, dev, errs):
+def multi_kernel_checks(torch, tt, spec, blocks, many, rng, dev, errs,
+                        seed):
     """#4 and #5 at ch 10, 17 and 18 (each, and its row or bucket index,
     bitwise equal to its plain version), fused_fm_step with and without
     spill and fused_wd_step at full width: against their plain versions,
@@ -528,7 +544,9 @@ def multi_kernel_checks(torch, tt, spec, blocks, many, rng, dev, errs):
         e = (gs[n].double() - gb[n].double()).abs().max().item()
         require(e <= 1e-4 * gb[n].abs().max().item() + 1e-6,
                 f"wd_boundary: {n} vs plain {e:.3e}")
-    note("wd_boundary", berr.max())
+    print(f"wd_boundary vs wd_boundary_plain (autograd, the library "
+          f"yardstick): margins {berr.max():.3e} (tolerance 1e-5*(1+|m|)), "
+          f"MLP grads within 1e-4 of each leaf's largest entry")
     mp, pp, gp = tt.fused_wd_step_plain(pw, ww, labels, mask, mlp, spec,
                                         "logit")
     merr = (m1.double() - mp.double()).abs()
@@ -551,6 +569,56 @@ def multi_kernel_checks(torch, tt, spec, blocks, many, rng, dev, errs):
           f"{merr.max():.3e} (tolerance 1e-5*(1+|m|)), pushes "
           f"{gerr.max():.3e} (reorder + bf16 flip bound), MLP grads within "
           f"1e-4 of each leaf's largest entry")
+    # the boundary kernel against its order-exact plain version: each row's
+    # sums in the kernel's order, the parameter sums span by span; the
+    # kernels line's max_abs_err is this comparison's (0 when bitwise)
+    dvb = tt._wd_step(pw, ww, labels, mask, mlp, sizes, spec, k, "logit")[3]
+    for loss in ("logit", "hinge"):
+        ms, dvs, gs = tt.wd_boundary(pulls, labels, mask, mlp, k, loss)
+        mo, dvo, go = tt.wd_boundary_ordered_plain(pulls, labels, mask, mlp,
+                                                   loss)
+        note("wd_boundary", max([(ms - mo).abs().max().item(),
+                                 (dvs - dvo).abs().max().item()]
+                                + [(gs[n] - go[n]).abs().max().item()
+                                   for n in go]))
+        require(torch.equal(ms, mo) and torch.equal(dvs, dvo),
+                f"wd_boundary {loss}: margins or push rows differ from the "
+                f"order-exact plain version ({int((ms != mo).sum())} "
+                f"margins, {int((dvs != dvo).sum())} push entries)")
+        for n in go:
+            require(torch.equal(gs[n], go[n]), f"wd_boundary {loss}: {n} "
+                    "differs from the order-exact plain version")
+        if loss == "logit":
+            require(torch.equal(dvb, dvo.to(torch.bfloat16)),
+                    "tile_wd_step: bf16 push rows differ from the "
+                    "order-exact plain version's")
+        print(f"wd_boundary {loss}: = order-exact plain bitwise (margins, "
+              f"f32 push rows, every MLP grad"
+              + ("; the fused step's bf16 push rows too)" if loss == "logit"
+                 else ")"))
+    del dvb, ms, dvs, gs, mo, dvo, go
+    # widths off the main path, on the same kernel: a tile that fits no
+    # CTA's shared memory (kept in device memory) and an MLP deeper than
+    # the widths the kernel takes by value; their weights from a generator
+    # of their own, so the later phases' inputs stay as they were
+    n_w, wrng = 4096, np.random.default_rng([seed, 11])
+    for hidden in ((1024, 512, 256), (8,) * 10):
+        wide = {}
+        for i, (a, b) in enumerate(zip([k, *hidden], [*hidden, 1])):
+            wide[f"W{i}"] = f32(wrng.standard_normal((a, b))
+                                * np.sqrt(2 / a))
+            wide[f"b{i}"] = f32(wrng.standard_normal(b) * 0.05)
+        pw_, lw, mw = (pulls[:n_w].contiguous(), labels[:n_w].contiguous(),
+                       mask[:n_w].contiguous())
+        got = tt.wd_boundary(pw_, lw, mw, wide, k, "logit")
+        want = tt.wd_boundary_ordered_plain(pw_, lw, mw, wide, "logit")
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and all(torch.equal(got[2][n], want[2][n]) for n in want[2]),
+                f"wd_boundary at hidden {hidden}: differs from the "
+                "order-exact plain version")
+        print(f"wd_boundary at hidden {hidden}, {n_w} rows: = order-exact "
+              f"plain bitwise (margins, f32 push rows, every MLP grad)")
+    del wide, got, want
 
 
 def oracle_taps(torch, store, oblocks, deep):
@@ -1049,7 +1117,7 @@ def multi_timing(torch, tt, spec, blocks, rng, dev, smi, launches, errs):
     out = []
 
     def entry(name, src, replaces, ker, plain, lib, nbytes, nops, chain=None,
-              note=""):
+              note="", lib_name="torch.sparse.mm", per_launch=False):
         k_ms = time_ms(torch, ker)
         p_ms = time_ms(torch, plain)
         l_ms = time_ms(torch, lib) if lib is not None else None
@@ -1061,10 +1129,17 @@ def multi_timing(torch, tt, spec, blocks, rng, dev, smi, launches, errs):
                 f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({nbytes / 1e6:.2f} MB,"
                 f" {nops / 1e9:.3f} GFLOP; by {b_by})")
         if l_ms is not None:
-            line += f"  torch.sparse.mm {l_ms:.4f} ms"
+            line += f"  {lib_name} {l_ms:.4f} ms"
         if chain is not None:
             line += f"  split chain {time_ms(torch, chain):.4f} ms"
         print(line + f"  card {smi}")
+        if per_launch:
+            per = launch_ms(torch, ker)
+            print(f"{name} launches (torch.profiler device ms per call): "
+                  + ("  ".join(f"{kernel_name(k_)} {v:.4f}"
+                               for k_, v in per.items())
+                     if per else "not measured (no device time reported)")
+                  + f"  card {smi}")
         return {"name": name, "route": "cuda",
                 "source": f"wormhole_tpu_torch/ops/csrc/{src}",
                 "replaces": replaces, "launches": launches[name],
@@ -1150,13 +1225,19 @@ def multi_timing(torch, tt, spec, blocks, rng, dev, smi, launches, errs):
     n_params = macs + sum(sizes[1:])
     mlp_flops = rows * 2 * macs * 3          # forward, input and weight vjp
     pulls = tt.forward_pulls(pw, ww, spec)
-    out.append(entry("wd_boundary", "tile_wd_step.cu",
+    # plain: the order-exact version; library: the autograd version, whose
+    # products are cuBLAS GEMMs
+    out.append(entry("wd_boundary", "tile_wd.cuh",
                      "wormhole_tpu/ops/tilemm.py:1622",
                      lambda: tt.wd_boundary(pulls, labels, mask, mlp, k,
                                             "logit"),
+                     lambda: tt.wd_boundary_ordered_plain(
+                         pulls, labels, mask, mlp, "logit"),
                      lambda: tt.wd_boundary_plain(pulls, labels, mask, mlp,
                                                   "logit"),
-                     None, rows * ((1 + k) + (k + 2) + 3) * 4, mlp_flops))
+                     rows * ((1 + k) + (k + 2) + 3) * 4, mlp_flops,
+                     lib_name="wd_boundary_plain (autograd, cuBLAS)",
+                     per_launch=True))
     out.append(entry(
         "tile_wd_step", "tile_wd_step.cu", "wormhole_tpu/ops/tilemm.py:1705",
         lambda: tt.fused_wd_step(pw, ww, labels, mask, mlp, spec, k,
@@ -1168,7 +1249,7 @@ def multi_timing(torch, tt, spec, blocks, rng, dev, smi, launches, errs):
         n_pairs * (2 * k + 3) + mlp_flops,
         chain=lambda: tt.backward_pushes(pw, tt.wd_boundary(
             tt.forward_pulls(pw, ww, spec), labels, mask, mlp, k,
-            "logit")[1], spec)))
+            "logit")[1], spec), per_launch=True))
     del ww, pulls
     # the whole train step of each store, the dense AdaGrad sweep included
     from wormhole_tpu_torch.data.crec import CRec2Info
@@ -1869,7 +1950,7 @@ def main() -> int:
     blocks = {"uniform": uniform_block, "spill": spill_block}
     merrs: dict = {}
     multi_kernel_checks(torch, tt, spec, blocks, (pw8, spec8), rng, dev,
-                        merrs)
+                        merrs, args.seed)
     del pw8
     print(f"phase {time.perf_counter() - t0:.1f} s")
 

@@ -11,7 +11,10 @@ ch 10 and ch 17 (the FM and wide&deep pull widths: the row index's three
 launches and the segmented sum apart), of ``backward_pushes`` alone at
 ch 10 and ch 18 (the push widths: the bf16 rounding, the bucket index's two
 launches and the segmented sum apart), ``fused_fm_step`` (dim 8),
-``fused_wd_step`` (dim 16, hidden 64,32), and the whole store train steps
+``wd_boundary`` alone (dim 16, hidden 64,32: the row-tile kernel
+``wd_tile`` and the combine of its span sums ``wd_combine``),
+``fused_wd_step`` (its pulls, ``wd_tile``, ``wd_combine`` and pushes), and
+the whole store train steps
 ``FMStore.tile_train_step`` and ``WideDeepStore.tile_train_step`` (the
 fused step, then the dense torch AdaGrad update of the table and the MLP,
 and the metric row). Prints the card's name and power limit. Needs CUDA and
@@ -74,6 +77,7 @@ def main() -> int:
                                                keepdim=True)], 1)
     ww = ws.slots[:, :17].contiguous()
     wt = {10: wf, 17: ww}
+    wpulls = tt.forward_pulls(pw, ww, spec)
     dvs = {ch: torch.from_numpy((rng.standard_normal((rows, ch)) * 0.4)
                                 .astype(np.float32)).to(dev)
            for ch in (10, 18)}
@@ -86,6 +90,9 @@ def main() -> int:
         for ch in (10, 18)] + [
         ("fused_fm_step (dim 8)",
          lambda: tt.fused_fm_step(pw, wf, labels, mask, spec, 8, "logit")),
+        ("wd_boundary (dim 16, hidden 64,32: wd_tile, wd_combine)",
+         lambda: tt.wd_boundary(wpulls, labels, mask, ws.mlp, 16,
+                                "logit")),
         ("fused_wd_step (dim 16, hidden 64,32)",
          lambda: tt.fused_wd_step(pw, ww, labels, mask, ws.mlp, spec, 16,
                                   "logit")),

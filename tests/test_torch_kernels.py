@@ -750,6 +750,77 @@ def test_fused_wd_step_equals_split_bitwise_on_cuda(cuda, hidden):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [SPEC.block_rows, 1000])
+@pytest.mark.parametrize("hidden", [(8,), (64, 32), (300, 40)])
+def test_wd_boundary_equals_ordered_plain_bitwise_on_cuda(cuda, hidden, n):
+    """The row-tile boundary kernel equals wd_boundary_ordered_plain bit for
+    bit (margins of the train and eval launches, f32 push rows, every
+    parameter gradient; logit and hinge), at widths whose weights sit in
+    shared memory and at (300, 40), whose weights are read through L1,
+    over the block's rows and over 1,000 rows (not a multiple of the
+    128-row tile or of the span); the fused step's bf16 push rows are the
+    ordered version's rows rounded."""
+    o = multi_operands(81, cuda, k=16 if hidden != (8,) else 4,
+                       hidden=hidden)
+    k, mlp = o["k"], o["mlp"]
+    pulls = tt.forward_pulls(o["pw"], o["wd_w"], SPEC)[:n].contiguous()
+    labels, mask = o["labels"][:n].contiguous(), o["mask"][:n].contiguous()
+    for loss in ("logit", "hinge"):
+        m, dv, g = tt.wd_boundary(pulls, labels, mask, mlp, k, loss)
+        me = tt.wd_boundary(pulls, labels, mask, mlp, k, loss,
+                            want_grad=False)[0]
+        mo, dvo, go = tt.wd_boundary_ordered_plain(pulls, labels, mask, mlp,
+                                                   loss)
+        torch.cuda.synchronize()
+        assert torch.equal(m, mo) and torch.equal(me, mo)
+        assert torch.equal(dv, dvo)
+        assert list(g) == list(go)
+        for key in go:
+            assert torch.equal(g[key], go[key]), key
+    if n == SPEC.block_rows:
+        dvb = tt._wd_step(o["pw"], o["wd_w"], o["labels"], o["mask"], mlp,
+                          tt.mlp_sizes(mlp), SPEC, k, "logit")[3]
+        dvo = tt.wd_boundary_ordered_plain(pulls, labels, mask, mlp,
+                                           "logit")[1]
+        assert torch.equal(dvb, dvo.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,hidden", [(16, (1024, 512, 256)), (4, (8,) * 10)])
+def test_wd_boundary_takes_any_width_on_cuda(cuda, k, hidden):
+    """Widths whose tile fits no CTA's shared memory (hidden (1024, 512,
+    256): the kernel keeps it in device memory) and an MLP deeper than the
+    eight layers the kernel takes by value run on the hand kernel: the
+    boundary equals wd_boundary_ordered_plain bitwise, the fused step equals
+    the split chain bitwise and its bf16 push rows are the ordered version's
+    rounded, and each call counts one launch."""
+    o = multi_operands(91, cuda, k=k, hidden=hidden)
+    mlp = o["mlp"]
+    pulls = tt.forward_pulls(o["pw"], o["wd_w"], SPEC)
+    before = multi_counts()
+    m, dv, g = tt.wd_boundary(pulls, o["labels"], o["mask"], mlp, k, "logit")
+    me = tt.wd_boundary(pulls, o["labels"], o["mask"], mlp, k, "logit",
+                        want_grad=False)[0]
+    fm, fp, fg, dvb = tt._wd_step(o["pw"], o["wd_w"], o["labels"],
+                                  o["mask"], mlp, tt.mlp_sizes(mlp), SPEC,
+                                  k, "logit")
+    sp = tt.backward_pushes(o["pw"], dv, SPEC)
+    mo, dvo, go = tt.wd_boundary_ordered_plain(pulls, o["labels"], o["mask"],
+                                               mlp, "logit")
+    torch.cuda.synchronize()
+    after = multi_counts()
+    assert torch.equal(m, mo) and torch.equal(me, mo) and torch.equal(fm, mo)
+    assert torch.equal(dv, dvo)
+    assert torch.equal(dvb, dvo.to(torch.bfloat16))
+    assert torch.equal(fp, sp)
+    fg = tt._unpack_mlp(fg, tt.mlp_sizes(mlp))
+    for key in go:
+        assert torch.equal(g[key], go[key]), key
+        assert torch.equal(fg[key], go[key]), key
+    assert np.subtract(after, before).tolist() == [0, 1, 0, 2, 0, 1]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["table_cpu", "table_1d", "dvals_shape",
                                  "fm_width", "mlp_width", "push_scratch",
                                  "pull_scratch"])

@@ -532,8 +532,9 @@ def test_model_auto_and_over_vmem_width():
     """``auto`` resolves split ("auto on cpu device") on the CPU and fused
     on CUDA, for FM spill and spill-free wide&deep. A wide&deep width over
     the TPU's VMEM budget resolves split in JAX and fused in the port: its
-    launch chain keeps the activations in device memory (the difference by
-    design that ROADMAP C records)."""
+    boundary kernel keeps a tile's activations in a device-memory region of
+    each CTA where they fit no CTA's shared memory, as at this width (the
+    difference by design that ROADMAP C records)."""
     fm = dict(spec=SPEC, channels=K + 2, ovf_cap=64)
     wd = dict(spec=SPEC, deep=True, dim=K, hidden=HIDDEN, channels=K + 2)
     for kw in (fm, wd):

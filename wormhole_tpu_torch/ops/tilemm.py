@@ -34,9 +34,11 @@ The multi-channel ops of the FM and wide&deep models (``models/``):
 
 Each has a plain torch version beside it (``*_plain``): the wrapper runs it
 for a CPU tensor, and only there; a CUDA tensor launches the kernel or
-raises. Each wrapper counts its launches in ``.launches``. The kernels sum
-in fixed orders without float atomics, so they return the same bits on every
-run, and the fused steps equal the split chain bitwise. The COO spill adds
+raises. ``wd_boundary_ordered_plain`` repeats the boundary kernel's order of
+operations, so the card holds the kernel to it bitwise. Each wrapper counts
+its launches in ``.launches``. The kernels sum in fixed orders without
+float atomics, so they return the same bits on every run, and the fused
+steps equal the split chain bitwise. The COO spill adds
 (``spill_margin_rows``, ``spill_grad_scatter``, ``spill_pull_rows``,
 ``spill_push_scatter``) stay in torch and are deterministic too.
 ``resolve_step_kernel`` picks fused or split as the JAX package does, with
@@ -52,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -521,9 +523,10 @@ def resolve_step_kernel(kernel: str, *, ovf_cap: int = 0,
     CPU. ``dim``/``hidden`` (the wide&deep geometry) are accepted as the
     JAX resolver takes them and recorded in the resolution, but bound
     nothing: the TPU budgeted the in-kernel MLP phase against VMEM, and the
-    port's fused steps are launch chains with their activations in device
-    memory, so every width fuses here (ROADMAP C records the
-    difference)."""
+    port's fused steps are launch chains whose MLP boundary keeps a tile's
+    activations in shared memory, or, for widths whose tile does not fit
+    there, in a device-memory region of each CTA, so every width fuses here
+    (ROADMAP C records the difference)."""
     if kernel not in STEP_KERNELS:
         raise ValueError(f"tile_step_kernel must be one of "
                          f"{STEP_KERNELS}, got {kernel!r}")
@@ -1314,7 +1317,7 @@ def mlp_forward(params: dict, x: torch.Tensor, n_layers: int
     """Dense MLP forward on the pooled embeddings (wide&deep's deep tower,
     ``wormhole_tpu/ops/tilemm.py:1575``): h @ W_i + b_i with ReLU between
     layers, the first output column. The plain version of the MLP the
-    wide&deep boundary kernel (csrc/tile_wd_step.cu) runs by hand."""
+    wide&deep boundary kernel (csrc/tile_wd.cuh) runs by hand."""
     h = x
     for i in range(n_layers):
         h = h @ params[f"W{i}"] + params[f"b{i}"]
@@ -1358,7 +1361,8 @@ def _check_mlp(mlp: dict, k: int, device) -> List[int]:
 def wd_boundary_plain(pulls, labels, mask, mlp: dict, loss: str,
                       want_grad: bool = True):
     """(margins, push rows [dual, g_pooled…, mask], MLP grads) plain torch:
-    the MLP forward and ``torch.func.vjp`` of it."""
+    the MLP forward and ``torch.func.vjp`` of it. On a CUDA tensor its
+    matrix products are cuBLAS GEMMs, the boundary's library yardstick."""
     n_layers = len(mlp) // 2
     deep, vjp = torch.func.vjp(lambda m, x: mlp_forward(m, x, n_layers),
                                mlp, pulls[:, 1:])
@@ -1371,24 +1375,136 @@ def wd_boundary_plain(pulls, labels, mask, mlp: dict, loss: str,
     return margin, dvals, dict(g_mlp)
 
 
-class _WdScratch:
-    """The wide&deep boundary's device operands: the packed parameters, the
-    layer widths, the column-major activation and cotangent scratch and the
-    parameter-gradient partials (csrc/tile_wd_step.cu)."""
+# rows a CTA of csrc/tile_wd.cuh sums each parameter gradient over: the
+# gradients add the rows of a span in order, then the spans in order, so the
+# span is part of their bits (the tile of rows a CTA keeps on chip is not)
+WD_SPAN_ROWS = 256
 
-    def __init__(self, mlp: dict, sizes: List[int], rows: int, device):
+
+def kernel_order_dual(margins, labels, mask, loss: str) -> torch.Tensor:
+    """The loss dual as ``csrc/tile_math.cuh`` ``loss_dual`` rounds it, one
+    torch op per device operation (logit: 1/(1 + exp(-x)) with x = -y·m,
+    where ``create_loss`` takes ``torch.sigmoid``)."""
+    key = loss_key(loss)
+    y = torch.where(labels > 0.5, 1.0, -1.0).to(margins.dtype)
+    if key == "logit":
+        x = -y * margins
+        return -y * (1.0 / (1.0 + torch.exp(-x))) * mask
+    if key == "hinge":
+        active = torch.where(1.0 - y * margins > 0, 1.0, 0.0).to(
+            margins.dtype)
+        return -y * active * mask
+    if key == "square_hinge":
+        t = torch.clamp(1.0 - y * margins, min=0.0)
+        return -2.0 * y * t * mask
+    return (margins - labels) * mask
+
+
+def _fold_rows(h: torch.Tensor, g: torch.Tensor, span: int):
+    """(Σ h[r, a]·g[r, b], Σ g[r, b]) over the rows, as the kernel adds them:
+    the rows of each span of ``span`` in order from 0, then the spans in
+    order from 0. Rows padded to whole spans carry h = g = 0, which add
+    nothing (a sum that starts at +0 never becomes -0)."""
+    n, sa = h.shape
+    sb = g.shape[1]
+    nspan = max(1, -(-n // span))
+    pad = nspan * span - n
+    hs = torch.nn.functional.pad(h, (0, 0, 0, pad)).view(nspan, span, sa)
+    gs = torch.nn.functional.pad(g, (0, 0, 0, pad)).view(nspan, span, sb)
+    sw = torch.zeros((nspan, sa, sb), dtype=h.dtype, device=h.device)
+    sbias = torch.zeros((nspan, sb), dtype=h.dtype, device=h.device)
+    for r in range(span):
+        sw = sw + hs[:, r, :, None] * gs[:, r, None, :]
+        sbias = sbias + gs[:, r]
+    gw = torch.zeros((sa, sb), dtype=h.dtype, device=h.device)
+    gb = torch.zeros(sb, dtype=h.dtype, device=h.device)
+    for s in range(nspan):
+        gw = gw + sw[s]
+        gb = gb + sbias[s]
+    return gw, gb
+
+
+def wd_boundary_ordered_plain(pulls, labels, mask, mlp: dict, loss: str,
+                              want_grad: bool = True,
+                              span: int = WD_SPAN_ROWS):
+    """``wd_boundary``'s results in the kernel's order, plain torch, one op
+    per device operation, so the kernel equals it bitwise on the card: each
+    layer's z[b] = ((0 + h_0·W[0,b]) + h_1·W[1,b]) + … + bias[b], ReLU as
+    z > 0 ? z : 0; the dual as ``kernel_order_dual``; gh[a] = Σ_b
+    W[a,b]·g[b] from 0 in b order, masked by h > 0 below the top layer;
+    the parameter gradients as ``_fold_rows`` over spans of ``span`` rows."""
+    n_layers = len(mlp) // 2
+    h = pulls[:, 1:]
+    hs = []
+    for i in range(n_layers):
+        W, b = mlp[f"W{i}"], mlp[f"b{i}"]
+        hs.append(h)
+        acc = torch.zeros((h.shape[0], W.shape[1]), dtype=h.dtype,
+                          device=h.device)
+        for a in range(W.shape[0]):
+            acc = acc + h[:, a:a + 1] * W[a]
+        z = acc + b
+        h = torch.where(z > 0, z, 0.0) if i + 1 < n_layers else z
+    margin = pulls[:, 0] + h[:, 0]
+    if not want_grad:
+        return margin, None, None
+    dual = kernel_order_dual(margin, labels, mask, loss)
+    g, grads = dual[:, None], {}
+    for i in range(n_layers - 1, -1, -1):
+        W = mlp[f"W{i}"]
+        grads[f"W{i}"], grads[f"b{i}"] = _fold_rows(hs[i], g, span)
+        gh = torch.zeros((g.shape[0], W.shape[0]), dtype=g.dtype,
+                         device=g.device)
+        for b in range(W.shape[1]):
+            gh = gh + g[:, b:b + 1] * W[:, b]
+        g = torch.where(hs[i] > 0, gh, 0.0) if i > 0 else gh
+    dvals = torch.cat([dual[:, None], g, mask[:, None]], 1)
+    return margin, dvals, {n: grads[n] for n in mlp}
+
+
+# (device, widths) -> the widths as a device int32 tensor, made once: the
+# kernel takes up to eight layers' widths by value and reads this copy only
+# for a deeper MLP
+_WD_DSIZES: Dict[Tuple[str, Tuple[int, ...]], torch.Tensor] = {}
+
+
+class _WdScratch:
+    """The wide&deep boundary's operands for csrc/tile_wd_step.cu: the
+    packed parameters, the layer widths as a host int array (the kernel
+    takes them by value) and a device copy made once per widths, the
+    device-memory tiles of widths whose tile fits no CTA's shared memory
+    (``wh_wd_tiles`` sizes them; none otherwise), each span's
+    parameter-gradient sums (spans, P) and the gradient."""
+
+    def __init__(self, lib, mlp: dict, sizes: List[int], rows: int, k: int,
+                 device, want_grad: bool = True):
         L = len(sizes) - 1
         self.L = L
         self.params = _pack_mlp(mlp, L).contiguous()
         self.P = self.params.numel()
-        self.sizes = torch.tensor(sizes, dtype=torch.int32, device=device)
-        self.acts = torch.empty((sum(sizes[:-1]), rows), dtype=torch.float32,
-                                device=device)
-        self.gz = torch.empty((sum(sizes[1:]), rows), dtype=torch.float32,
-                              device=device)
-        self.gpart = torch.empty((-(-rows // 512), self.P),
-                                 dtype=torch.float32, device=device)
-        self.grad = torch.empty(self.P, dtype=torch.float32, device=device)
+        self.sizes = (ctypes.c_int * (L + 1))(*sizes)
+        key = (str(device), tuple(sizes))
+        if key not in _WD_DSIZES:
+            _WD_DSIZES[key] = torch.tensor(sizes, dtype=torch.int32,
+                                           device=device)
+        self.dsizes = _WD_DSIZES[key]
+        f = lib.wh_wd_tiles
+        f.argtypes = [_P, _P, _I, _L, _I, _L, _I, _I]
+        f.restype = _L
+        with torch.cuda.device(device):
+            n = f(self.sizes, self.dsizes.data_ptr(), L, self.P, k, rows,
+                  WD_SPAN_ROWS, int(want_grad))
+        if n < 0:
+            raise ValueError(f"MLP widths {sizes}: the boundary kernel "
+                             f"does not take them ({self.P} parameters)")
+        self.tiles = (torch.empty(n, dtype=torch.float32, device=device)
+                      if n > 0 else None)
+        self.gpart = self.grad = None
+        if want_grad:
+            self.gpart = torch.empty((-(-rows // WD_SPAN_ROWS), self.P),
+                                     dtype=torch.float32, device=device)
+            self.grad = torch.empty(self.P, dtype=torch.float32,
+                                    device=device)
 
 
 def wd_boundary(pulls: torch.Tensor, labels: torch.Tensor,
@@ -1399,10 +1515,12 @@ def wd_boundary(pulls: torch.Tensor, labels: torch.Tensor,
     g_pooled_1..k, mask], MLP parameter grads {W_i, b_i}); the last two
     None when not ``want_grad``. No nudge, as in the JAX step.
 
-    On a CUDA tensor it launches ``wh_wd_boundary`` (csrc/tile_wd_step.cu),
-    the MLP forward and vjp the fused step runs at its boundary, so the
-    split chain and the eval margins give the fused step's bits (counted
-    in ``wd_boundary.launches``); on a CPU tensor, and only there,
+    On a CUDA tensor it launches ``wh_wd_boundary`` (csrc/tile_wd_step.cu:
+    the row-tile kernel of csrc/tile_wd.cuh, then the combine of its span
+    sums), the MLP forward and vjp the fused step runs at its boundary, so
+    the split chain and the eval margins give the fused step's bits
+    (counted in ``wd_boundary.launches``); it equals
+    ``wd_boundary_ordered_plain`` bitwise. On a CPU tensor, and only there,
     ``wd_boundary_plain``."""
     key = loss_key(loss)
     n = pulls.shape[0]
@@ -1412,20 +1530,19 @@ def wd_boundary(pulls: torch.Tensor, labels: torch.Tensor,
     if pulls.device.type != "cuda":
         return wd_boundary_plain(pulls, labels, mask, mlp, key, want_grad)
     lib = _lib("tile_wd_step", "wh_wd_boundary",
-               [_P] * 5 + [_I] * 3 + [_P] * 6 + [ctypes.c_longlong, _I, _I,
-                                                  _P])
+               [_P] * 6 + [_I, _L, _I] + [_P] * 5 + [_L, _I, _I, _I, _P])
     dev = pulls.device
-    sc = _WdScratch(mlp, sizes, n, dev)
+    sc = _WdScratch(lib, mlp, sizes, n, k, dev, want_grad)
     margins = torch.empty(n, dtype=torch.float32, device=dev)
     dvals = (torch.empty((n, k + 2), dtype=torch.float32, device=dev)
              if want_grad else None)
     with torch.cuda.device(dev):
         err = lib.wh_wd_boundary(
             pulls.data_ptr(), labels.data_ptr(), mask.data_ptr(),
-            sc.params.data_ptr(), sc.sizes.data_ptr(), sc.L, sc.P, k,
-            sc.acts.data_ptr(), sc.gz.data_ptr(), sc.gpart.data_ptr(),
-            margins.data_ptr(), _ptr(dvals), sc.grad.data_ptr(), n,
-            LOSS_IDS[key], int(want_grad), _stream(pulls))
+            sc.params.data_ptr(), sc.sizes, sc.dsizes.data_ptr(), sc.L,
+            sc.P, k, _ptr(sc.tiles), _ptr(sc.gpart), margins.data_ptr(),
+            _ptr(dvals), _ptr(sc.grad), n, WD_SPAN_ROWS, LOSS_IDS[key],
+            int(want_grad), _stream(pulls))
     _ext.check(lib, err, "wd_boundary")
     wd_boundary.launches += 1
     if not want_grad:
@@ -1468,10 +1585,18 @@ def fused_wd_step(pw: torch.Tensor, wpull: torch.Tensor,
     sizes = _check_mlp(mlp, k, pw.device)
     if pw.device.type != "cuda":
         return fused_wd_step_plain(pw, wpull, labels, mask, mlp, spec, key)
+    margins, pushes, grad, _ = _wd_step(pw, wpull, labels, mask, mlp, sizes,
+                                        spec, k, key)
+    return margins, pushes, _unpack_mlp(grad, sizes)
+
+
+def _wd_step(pw, wpull, labels, mask, mlp, sizes, spec, k, key):
+    """Launch ``wh_wd_step`` on checked CUDA operands: (margins, pushes,
+    flat MLP grads, the bf16 push rows (rows, k+2) the pushes summed)."""
     lib = _lib("tile_wd_step", "wh_wd_step",
-               [_P] * 6 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P])
+               [_P] * 7 + [_I, _L] + [_P] * 10 + [_I] * 8 + [_P])
     dev, rows = pw.device, spec.block_rows
-    sc = _WdScratch(mlp, sizes, rows, dev)
+    sc = _WdScratch(lib, mlp, sizes, rows, k, dev)
     pull_idx, per_run = _pull_scratch(spec, dev)
     push_idx, perm = _push_scratch(spec, dev), _perm_scratch(spec, dev)
     pulls = torch.empty((rows, k + 1), dtype=torch.float32, device=dev)
@@ -1482,15 +1607,16 @@ def fused_wd_step(pw: torch.Tensor, wpull: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.wh_wd_step(
             pw.data_ptr(), wpull.data_ptr(), labels.data_ptr(),
-            mask.data_ptr(), sc.params.data_ptr(), sc.sizes.data_ptr(),
-            sc.L, sc.P, pull_idx.data_ptr(), pulls.data_ptr(),
-            sc.acts.data_ptr(), sc.gz.data_ptr(), sc.gpart.data_ptr(),
+            mask.data_ptr(), sc.params.data_ptr(), sc.sizes,
+            sc.dsizes.data_ptr(), sc.L, sc.P, pull_idx.data_ptr(),
+            pulls.data_ptr(), _ptr(sc.tiles), sc.gpart.data_ptr(),
             margins.data_ptr(), dvb.data_ptr(), sc.grad.data_ptr(),
             push_idx.data_ptr(), perm.data_ptr(), pushes.data_ptr(), T, SG,
-            spec.group, spec.cap, k, per_run, LOSS_IDS[key], _stream(pw))
+            spec.group, spec.cap, k, per_run, WD_SPAN_ROWS, LOSS_IDS[key],
+            _stream(pw))
     _ext.check(lib, err, "tile_wd_step")
     fused_wd_step.launches += 1
-    return margins, pushes, _unpack_mlp(sc.grad, sizes)
+    return margins, pushes, sc.grad, dvb
 
 
 fused_wd_step.launches = 0
