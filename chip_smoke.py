@@ -5,9 +5,10 @@
 
 Drives the port's crec2 predict and training paths at the full width of the
 repo's flagship model (criteo-shaped FTRL: 2^22 buckets, 39 keys per row,
-98,304-row blocks), and FM (dim 8) and wide&deep (dim 16, hidden 64,32)
-training at the same geometry, on the card, and fails (non-zero exit) on any
-error:
+98,304-row blocks), FM (dim 8) and wide&deep (dim 16, hidden 64,32) training
+at the same geometry, and the default launch of the JAX package (libsvm
+text through the sparse path, every ``algo``), on the card, and fails
+(non-zero exit) on any error:
 
 1. prints torch, CUDA, nvcc versions and the card's name and power limit;
 2. builds every kernel from ``wormhole_tpu_torch/ops/csrc`` (one ``nvcc`` per
@@ -45,7 +46,10 @@ error:
    fused and split trained slots bitwise equal, and per-pass train objv and
    validation objv/AUC/accuracy within 1e-4 of a float64 numpy oracle of the
    same FTRL steps, and the final weights within the stated per-bucket
-   bound; prints examples per second of each run;
+   bound; prints examples per second of each run. Then ``algo=adagrad`` and
+   ``sgd`` on the spill file through ``main``, fused (``tile_step_grad``,
+   the spill scatter and ``masked_push``) and split: the launches of each,
+   fused = split bitwise, and a float64 oracle of the same steps;
 10. times each training kernel per full-width block beside its bound, its
     plain version, the split chain, and (for ``tile_bwd``, also on the
     fuse=8 spec) the one-call yardstick ``torch.sparse.mm`` of the
@@ -84,7 +88,25 @@ error:
     ``tile_pulls`` (its row index and its segmented sum apart), of
     ``wd_boundary`` and of ``tile_wd_step`` (``torch.profiler``), and the
     whole FM and wide&deep train step with the dense AdaGrad update;
-14. prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
+14. writes libsvm files from ``--seed`` (200,000 training rows, 200
+    minibatches of the default 1000 a pass, and 20,000 validation rows; 39
+    hashed ids a row, 10% missing) and requires the native parser to load
+    and TF32 matmuls to be off;
+15. trains 2 passes with validation through ``main`` for each ``algo``
+    (``dt2_adagrad`` at ``max_delay=4``), FM and wide&deep, at the default
+    ``fixed_bytes=1`` and ``pipeline_workers=2``; the FTRL run also
+    predicts through ``ForwardStep``, whose margins must equal the eval
+    step's bitwise on every validation batch; then runs FTRL, AdaGrad,
+    DT2, FM and wide&deep again and requires the same bits (state and pass
+    metrics);
+16. runs each of them on the first 20 minibatches on the card and with
+    ``device=cpu`` and holds the two within the stated bound; FTRL also
+    trains on the same rows written as recordio, to the same bits;
+17. replays 5 sparse FTRL and AdaGrad steps (``fixed_bytes=0``) in float64
+    numpy and holds the card within 1e-5·(1 + |x|);
+18. times the host stages (parse, localize + pad, H2D), each sparse step
+    and ``masked_push`` per minibatch with CUDA events;
+19. prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
     as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -283,13 +305,22 @@ def oracle_margins(w, blk, rows):
                           minlength=rows))
 
 
-def oracle_train(blocks, nb, rows, auc_np):
-    """Float64 FTRL over the blocks, PASSES passes, logit loss, with the
-    kernels' bf16 rounding of w (tile pairs) and of the dual (tile pairs;
-    spill pairs carry f32 values). Returns the final w and, per pass, the
-    train objv per example and the validation (same blocks) objv per
-    example, pooled AUC and mean per-block accuracy."""
+def prox(v, eta_inv):
+    """L1L2 prox at LAMBDA: shrink(v, λ1) / (eta_inv + λ2)."""
+    return (np.sign(v) * np.maximum(np.abs(v) - LAMBDA[0], 0)
+            / (eta_inv + LAMBDA[1]))
+
+
+def oracle_train(blocks, nb, rows, auc_np, algo="ftrl"):
+    """Float64 training over the blocks, PASSES passes, logit loss, with
+    the kernels' bf16 rounding of w (tile pairs) and of the dual (tile
+    pairs; spill pairs carry f32 values): FTRL, or AdaGrad / SGD (η =
+    α/(β + √t), t the step count from 1) on the buckets whose gradient is
+    not 0 (the touched-bucket mask of a penalized handle). Returns the final w
+    and, per pass, the train objv per example and the validation (same
+    blocks) objv per example, pooled AUC and mean per-block accuracy."""
     w, z, cg = np.zeros(nb), np.zeros(nb), np.zeros(nb)
+    t = 1
     log = []
     for _ in range(PASSES):
         objv, n = 0.0, 0
@@ -306,12 +337,24 @@ def oracle_train(blocks, nb, rows, auc_np):
                              minlength=nb)
                  + np.bincount(sb, weights=d32.astype(np.float64)[sr],
                                minlength=nb))
-            c = np.sqrt(cg * cg + g * g)
-            z = z + g - (c - cg) / ALPHA * w
-            cg = c
-            v = -z
-            w = (np.sign(v) * np.maximum(np.abs(v) - LAMBDA[0], 0)
-                 / ((BETA + c) / ALPHA + LAMBDA[1]))
+            if algo == "ftrl":
+                c = np.sqrt(cg * cg + g * g)
+                z = z + g - (c - cg) / ALPHA * w
+                cg = c
+                w = prox(-z, (BETA + c) / ALPHA)
+            else:
+                # the touched-bucket mask of the port and the JAX package:
+                # the buckets whose gradient is not exactly 0 (at w = 0
+                # the duals are ±0.5 and many buckets' sums cancel)
+                hit = g != 0
+                if algo == "adagrad":
+                    c = np.where(hit, np.sqrt(cg * cg + g * g), cg)
+                    eta = ALPHA / (BETA + c)
+                    cg = c
+                else:
+                    eta = np.full(nb, ALPHA / (BETA + np.sqrt(t)))
+                w = np.where(hit, prox(w / eta - g, 1.0 / eta), w)
+            t += 1
         ms, ys, accs, vobjv = [], [], [], 0.0
         for blk in blocks:
             lab = blk[4]
@@ -1274,6 +1317,346 @@ def multi_timing(torch, tt, spec, blocks, rng, dev, smi, launches, errs):
     return out
 
 
+# -- the sparse SparseBatch path (libsvm text) --------------------------------
+
+SPARSE_ROWS = 200_000       # 200 minibatches of the default 1000 rows a pass
+SPARSE_VAL = 20_000
+CPU_ROWS = 20_000           # the card-vs-CPU comparison: 20 minibatches
+SPARSE_ALGOS = ("ftrl", "sgd", "adagrad", "dt_sgd", "dt_adagrad",
+                "dt2_adagrad")
+SPARSE_REPEAT = ("ftrl", "adagrad", "dt2_adagrad", "fm", "wide_deep")
+ORACLE_BATCHES = 5
+ORACLE_LAMBDA = (0.01, 0.001)
+
+
+def libsvm_lines(rng, n, vocab, w_np):
+    """``n`` libsvm rows shaped like the flagship: 39 hashed feature ids a
+    row drawn from ``vocab`` (10% missing), labels from the linear model
+    ``w_np`` over the splitmix64-folded buckets."""
+    from wormhole_tpu_torch.data.hashing import fold_keys
+    ids = vocab[rng.integers(0, len(vocab), size=(n, NNZ))]
+    keep = rng.random((n, NNZ)) >= 0.1
+    m = np.where(keep, w_np[fold_keys(ids, NB)], 0.0).sum(1)
+    lab = (rng.random(n) < 1 / (1 + np.exp(-m))).astype(np.int64)
+    txt = ids.astype(str)
+    return [f"{y} {' '.join(t[k])}\n"
+            for y, t, k in zip(lab.tolist(), txt, keep)]
+
+
+def snapshot(store) -> dict:
+    """The trained state of a store: its table, and the MLP and its
+    accumulators for wide&deep."""
+    out = {"slots": store.slots.clone()}
+    for name in ("mlp", "mlp_accum"):
+        if hasattr(store, name):
+            out.update({f"{name}.{k}": v.clone()
+                        for k, v in getattr(store, name).items()})
+    return out
+
+
+def touched_entries(snap: dict, width_of_w: int) -> int:
+    """Entries of the table that training reached: the buckets whose
+    accumulators (or, for the linear stores, any slot) are nonzero."""
+    t = snap["slots"]
+    if t.shape[0] < t.shape[1]:                 # plane-major linear table
+        return int((t != 0).any(0).sum()) * t.shape[0]
+    acc = t[:, width_of_w:]
+    return int((acc != 0).any(1).sum()) * t.shape[1]
+
+
+def oracle_sparse(batches, algo, val_len):
+    """Float64 replay of the sparse FTRL or AdaGrad steps (fixed_bytes=0,
+    penalty ORACLE_LAMBDA, α, β the defaults) over host SparseBatches:
+    gather, margin, logit dual, the gradient summed per local key, the
+    update, written back for the real keys. Returns the (val_len, NB)
+    table."""
+    slots = np.zeros((val_len, NB))
+    l1, l2 = ORACLE_LAMBDA
+
+    def prox_(v, eta_inv):
+        return np.sign(v) * np.maximum(np.abs(v) - l1, 0) / (eta_inv + l2)
+
+    for b in batches:
+        uk = b.uniq_keys.numpy().astype(np.int64)
+        cols = b.cols.numpy().astype(np.int64)
+        vals = b.vals.numpy().astype(np.float64)
+        lab, mask = b.labels.numpy(), b.row_mask.numpy().astype(np.float64)
+        rows = slots[:, uk]
+        m = (vals * rows[0][cols]).sum(1)
+        y = np.where(lab > 0.5, 1.0, -1.0)
+        dual = -y / (1 + np.exp(y * m)) * mask
+        g = np.bincount(cols.ravel(), weights=(vals * dual[:, None]).ravel(),
+                        minlength=len(uk))
+        if algo == "ftrl":
+            w, z, cg = rows
+            c = np.sqrt(cg * cg + g * g)
+            z = z + g - (c - cg) / ALPHA * w
+            new = np.stack([prox_(-z, (BETA + c) / ALPHA), z, c])
+        else:
+            w, cg = rows
+            c = np.sqrt(cg * cg + g * g)
+            eta = ALPHA / (BETA + c)
+            new = np.stack([prox_(w / eta - g, 1.0 / eta), c])
+        k = b.num_keys
+        slots[:, uk[:k]] = new[:, :k]
+    return slots
+
+
+def sparse_phases(torch, rng, dev, smi, auc_np):
+    """Phases 14-18: the sparse path at full width through each entry
+    point's ``main``; returns the per-step times for the summary."""
+    from wormhole_tpu_torch.data import native
+    from wormhole_tpu_torch.data.feed import next_bucket, nnz_bucket, \
+        pad_to_batch
+    from wormhole_tpu_torch.data.localizer import Localizer
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.data.recordio import RecordWriter
+    from wormhole_tpu_torch.learners import async_sgd
+    from wormhole_tpu_torch.learners.handles import create_handle
+    from wormhole_tpu_torch.learners.store import ShardedStore, \
+        StoreConfig, masked_push
+    from wormhole_tpu_torch.models import fm, wide_deep
+    from wormhole_tpu_torch.ops.penalty import L1L2
+    from wormhole_tpu_torch.serve import ForwardStep
+
+    entries = {a: (async_sgd.main, [f"algo={a}"] + (
+        ["max_delay=4"] if a == "dt2_adagrad" else [])) for a in SPARSE_ALGOS}
+    entries["fm"] = (fm.main, [f"dim={FM_DIM}"])
+    entries["wide_deep"] = (wide_deep.main, [
+        f"dim={WD_DIM}", "hidden=" + ",".join(map(str, WD_HIDDEN))])
+    width_of_w = {"fm": 1 + FM_DIM, "wide_deep": 1 + WD_DIM}
+    base = [f"num_buckets={NB}", "disp_itv=1e12"]
+    times: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as work:
+        t0 = phase("sparse path: write libsvm files (39 ids a row)")
+        require(native.available(), "the native libsvm parser did not load")
+        print(f"native parser loaded: {native._find_lib()}")
+        require(not torch.backends.cuda.matmul.allow_tf32,
+                "TF32 matmuls are on")
+        vocab = rng.integers(0, 1 << 40, size=VOCAB, dtype=np.uint64)
+        w_true = rng.standard_normal(NB) * 0.5
+        files = {k: os.path.join(work, f"{k}.libsvm")
+                 for k in ("train", "val", "head")}
+        lines = libsvm_lines(rng, SPARSE_ROWS, vocab, w_true)
+        with open(files["train"], "w") as f:
+            f.writelines(lines)
+        with open(files["head"], "w") as f:
+            f.writelines(lines[:CPU_ROWS])
+        with open(files["val"], "w") as f:
+            f.writelines(libsvm_lines(rng, SPARSE_VAL, vocab, w_true))
+        del lines
+        print(f"{SPARSE_ROWS} + {SPARSE_VAL} rows, "
+              f"{os.path.getsize(files['train']) / 1e6:.0f} MB; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("sparse path: train 2 passes through main, each algo, "
+                   "FM and wide&deep")
+        full = base + [f"train_data={files['train']}",
+                       f"val_data={files['val']}",
+                       f"max_data_pass={PASSES}"]
+        pred = os.path.join(work, "pred.txt")
+        state = {}
+        for name, (fn, extra) in entries.items():
+            argv = full + extra + ([f"test_data={files['val']}",
+                                    f"pred_out={pred}"]
+                                   if name == "ftrl" else [])
+            t1 = time.perf_counter()
+            app = run_main(fn, argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            log = app.pass_log
+            require(len(log) == PASSES and all(
+                np.isfinite(r[k]) for r in log for k in r), f"{name}: {log}")
+            require(log[-1]["val_auc"] > 0.5, f"{name}: {log}")
+            state[name] = (snapshot(app.store), log)
+            print(f"{name}: {dt:.1f} s, {PASSES * SPARSE_ROWS / dt:.0f} "
+                  "train examples/s over the run (validation included); "
+                  + "; ".join(f"pass {r['pass']} train_objv "
+                              f"{r['train_objv']:.6f} val_objv "
+                              f"{r['val_objv']:.6f} val_auc "
+                              f"{r['val_auc']:.6f}" for r in log))
+            if name == "ftrl":
+                # the predict pass rode ForwardStep; its margins are the
+                # eval step's, bitwise, on every validation batch
+                fwd = ForwardStep.from_store(app.store)
+                margins = []
+                for batch in app._batches(files["val"], 0, 1):
+                    m_eval = app.store.eval_step(batch)[4]
+                    require(torch.equal(fwd.margins(batch), m_eval),
+                            "ForwardStep margins differ from eval_step's")
+                    margins.append(m_eval[:batch.num_real].cpu().numpy())
+                p = np.loadtxt(pred)
+                want = 1 / (1 + np.exp(-np.concatenate(margins)
+                                       .astype(np.float64)))
+                require(p.shape == (SPARSE_VAL,)
+                        and np.abs(p - want).max() <= 1e-6,
+                        "predictions off the served margins")
+                print(f"predict: {len(p)} predictions through ForwardStep; "
+                      "its margins equal eval_step's bitwise on every "
+                      "validation batch")
+            del app
+        print(f"phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("sparse path: a second run is bitwise the first")
+        for name in SPARSE_REPEAT:
+            fn, extra = entries[name]
+            app = run_main(fn, full + extra)
+            again = snapshot(app.store)
+            first, log = state[name]
+            require(sorted(again) == sorted(first) and all(
+                torch.equal(again[k], first[k]) for k in first),
+                f"{name}: a second run trained other bits")
+            require(app.pass_log == log, f"{name}: pass metrics differ")
+            del app
+        print(f"bitwise equal state and pass metrics: {SPARSE_REPEAT}; "
+              f"phase {time.perf_counter() - t0:.1f} s")
+        del state
+
+        t0 = phase("sparse path: the card against the port on device=cpu "
+                   f"({CPU_ROWS // 1000} minibatches)")
+        # Bound (fixed_bytes=1, the default): the two devices sum a row's
+        # margin in another order (an ulp apart), and a gradient within an
+        # ulp of a quantizer boundary takes the neighbouring level, one
+        # quantum q = max|g|/127 off, which the update carries into that
+        # key's slots and later margins. So at least 99.9% of the touched
+        # table entries agree to the f32 bound 1e-5·(1 + |x|), every entry
+        # within 0.1·(1 + |x|), and the pass objv within 1e-4.
+        head = base + [f"train_data={files['head']}", "max_data_pass=1"]
+        for name, (fn, extra) in entries.items():
+            apps = [run_main(fn, head + extra + d)
+                    for d in ([], ["device=cpu"])]
+            got, want = (snapshot(a.store) for a in apps)
+            if name == "ftrl":
+                # the same rows as recordio records: the same minibatches,
+                # so the same bits
+                rec = os.path.join(work, "head.rec")
+                with open(rec, "wb") as f:
+                    wr = RecordWriter(f)
+                    for blk in MinibatchIter(files["head"], 0, 1, "libsvm",
+                                             1000):
+                        for i in range(blk.size):
+                            lo, hi = blk.offset[i], blk.offset[i + 1]
+                            wr.write_row(float(blk.label[i]),
+                                         blk.index[lo:hi])
+                st = run_main(fn, base + [f"train_data={rec}",
+                                          "data_format=recordio",
+                                          "max_data_pass=1"] + extra).store
+                require(torch.equal(st.slots, got["slots"]),
+                        "recordio and libsvm trained other bits")
+                print("ftrl on the same rows as recordio: the libsvm run's "
+                      "bits")
+            off, worst = 0, 0.0
+            for k in want:
+                g, w = got[k].double().cpu(), want[k].double()
+                err = (g - w).abs()
+                off += int((err > 1e-5 * (1 + w.abs())).sum())
+                worst = max(worst, float((err / (1 + w.abs())).max()))
+            n = touched_entries(want, width_of_w.get(name, 1))
+            objv = [a.pass_log[0]["train_objv"] for a in apps]
+            print(f"{name}: {off} of {n} touched entries off the f32 bound, "
+                  f"worst {worst:.3e} of 1+|x|; train_objv {objv[0]:.8f} "
+                  f"(cpu {objv[1]:.8f})")
+            require(off <= 1e-3 * n and worst <= 0.1
+                    and abs(objv[0] - objv[1]) <= 1e-4 * abs(objv[1]),
+                    f"{name}: card and CPU disagree")
+            del apps, got, want
+        print(f"phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("sparse path: FTRL and AdaGrad steps vs a float64 oracle")
+        loc = Localizer(num_buckets=NB)
+        host = []
+        t_lp = 0.0
+        reader = MinibatchIter(files["head"], 0, 1, "libsvm", 1000)
+        for blk in reader:
+            t1 = time.perf_counter()
+            lz = loc.localize(blk)
+            host.append(pad_to_batch(lz, 1000,
+                                     nnz_bucket(blk.max_row_nnz()),
+                                     next_bucket(len(lz.uniq_keys), 64)))
+            t_lp += time.perf_counter() - t1
+        times["localize_pad_ms"] = t_lp / len(host) * 1e3
+        for algo in ("ftrl", "adagrad"):
+            h = create_handle(algo, L1L2(*ORACLE_LAMBDA))
+            st = ShardedStore(StoreConfig(num_buckets=NB, fixed_bytes=0), h,
+                              dev)
+            for b in host[:ORACLE_BATCHES]:
+                st.train_step(b.to(dev, non_blocking=True))
+            want = oracle_sparse(host[:ORACLE_BATCHES], algo, h.val_len)
+            got = st.slots.double().cpu().numpy()
+            err = np.abs(got - want)
+            bound = 1e-5 * (1 + np.abs(want))
+            print(f"{algo}: {ORACLE_BATCHES} steps, max err {err.max():.3e}, "
+                  f"worst {float((err / bound).max()):.3f} of the bound "
+                  "1e-5*(1+|x|)")
+            require(bool((err <= bound).all()), f"{algo}: off the oracle")
+        print(f"phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("sparse path: time per minibatch (CUDA events)")
+        t1 = time.perf_counter()
+        n = sum(1 for _ in MinibatchIter(files["train"], 0, 1, "libsvm",
+                                         1000))
+        times["parse_ms"] = (time.perf_counter() - t1) / n * 1e3
+        dbatch = [b.to(dev, non_blocking=True) for b in host]
+        times["h2d_ms"] = time_ms(
+            torch, lambda: host[0].to(dev, non_blocking=True))
+        print(f"host: parse {times['parse_ms']:.3f} ms, localize+pad "
+              f"{times['localize_pad_ms']:.3f} ms, H2D (pin + copy) "
+              f"{times['h2d_ms']:.4f} ms per 1000-row minibatch  [{smi}]")
+        stores = {a: ShardedStore(StoreConfig(num_buckets=NB, fixed_bytes=1),
+                                  create_handle(a), dev)
+                  for a in SPARSE_ALGOS}
+        stores["fm"] = fm.FMStore(fm.FMConfig(num_buckets=NB, dim=FM_DIM),
+                                  dev)
+        stores["wide_deep"] = wide_deep.WideDeepStore(
+            wide_deep.WideDeepConfig(num_buckets=NB, dim=WD_DIM,
+                                     hidden=WD_HIDDEN), dev)
+        for name, st in stores.items():
+            it = iter(range(10 ** 9))
+
+            if name == "dt2_adagrad":
+                def step():
+                    b = dbatch[next(it) % len(dbatch)]
+                    st.dt2_push(b, *st.dt2_pull(b)[:2])
+            else:
+                def step():
+                    st.train_step(dbatch[next(it) % len(dbatch)])
+            times[f"step_{name}_ms"] = ms = time_ms(torch, step)
+            print(f"sparse step {name}: {ms:.4f} ms a minibatch "
+                  f"({1000 / ms * 1e3:.0f} examples/s)  [{smi}]")
+        del stores
+        for algo in ("adagrad", "sgd"):
+            h = create_handle(algo, L1L2(*LAMBDA))
+            s32 = h.init(NB, dev)
+            g = torch.zeros(NB, device=dev)
+            hit = torch.randint(0, NB, (40_000,), device=dev)
+            g[hit] = torch.randn(40_000, device=dev)
+            times[f"masked_push_{algo}_ms"] = ms = time_ms(
+                torch, lambda: masked_push(h, s32, g, 5.0, 0.0, False))
+            print(f"masked_push {algo}: {ms:.4f} ms per full-table push "
+                  f"({NB} buckets, val_len {h.val_len})  [{smi}]")
+        print(f"phase {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def run_main(main_fn, argv):
+    """Run an entry point's ``main`` (the CLI a user calls) and return the
+    ``AsyncSGD`` app it ran, for the checks that read its state."""
+    from wormhole_tpu_torch.learners import async_sgd
+    apps, orig = [], async_sgd.AsyncSGD.run
+
+    def run(self):
+        apps.append(self)
+        return orig(self)
+
+    async_sgd.AsyncSGD.run = run
+    try:
+        rc = main_fn(argv)
+    finally:
+        async_sgd.AsyncSGD.run = orig
+    require(rc == 0 and len(apps) == 1, f"main returned {rc}")
+    return apps[0]
+
+
 def write_train_files(rng, work, spec, n_rows, w_np, tag=""):
     """A 4-block spill file (ovf_cap 1024, a hot key in block 1) and a
     4-block ovf_cap=0 file: keys from a 2^20-key vocabulary, so a key
@@ -1810,6 +2193,64 @@ def main() -> int:
             require(werr.max() <= 2e-3 and tight.mean() >= 0.99,
                     f"{kind}: final weights off the oracle")
         print(f"phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("tile training with algo=adagrad and sgd (masked push)")
+        # the other handles train through fused_step_grad (#6) or the split
+        # chain, then masked_push: the handle applied to the whole table,
+        # kept where the (nudged) gradient is 0 (LAMBDA makes it needed)
+        tile_expect = {"fused": {"tile_step_grad": 8, "loss_dual": 8,
+                                 "tile_fwd": 8},
+                       "split": {"tile_fwd": 16, "tile_bwd": 8,
+                                 "loss_dual": 8}}
+        for algo in ("adagrad", "sgd"):
+            runs = {}
+            for kernel, want in tile_expect.items():
+                for f in counted:
+                    f.launches = 0
+                t1 = time.perf_counter()
+                app = run_main(async_sgd.main, base + [
+                    f"train_data={files['spill']}",
+                    f"val_data={files['spill']}", f"algo={algo}",
+                    f"tile_step_kernel={kernel}"])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                got = counts()
+                for n in names:
+                    train_launches[n] += got[n]
+                require(got == {n: want.get(n, 0) for n in names},
+                        f"{algo}/{kernel} launches {got}")
+                rec = app.store._tile_kernel[(read_header2(files["spill"]),
+                                              "train")]
+                require(rec[0] == kernel, f"{algo}/{kernel} resolved {rec}")
+                runs[kernel] = (app.store.slots, app.pass_log)
+                print(f"{algo}/{kernel} (main): launches {got}; {dt:.1f} s, "
+                      f"{train_rows / dt:.0f} train examples/s")
+                del app
+            require(torch.equal(runs["fused"][0], runs["split"][0]),
+                    f"{algo}: fused and split trained slots differ")
+            w_or, log_or = oracle_train(oblocks["spill"], NB,
+                                        spec.block_rows, auc_np, algo)
+            for p_, (a, b) in enumerate(zip(runs["fused"][1], log_or)):
+                for key in ("train_objv", "val_objv"):
+                    require(abs(a[key] - b[key]) <= 1e-4 * abs(b[key]),
+                            f"{algo} pass {p_} {key} {a[key]} vs {b[key]}")
+                for key in ("val_auc", "val_acc"):
+                    require(abs(a[key] - b[key]) <= 1e-4,
+                            f"{algo} pass {p_} {key} {a[key]} vs {b[key]}")
+                print(f"{algo} pass {p_}: " + "  ".join(
+                    f"{k} {a[k]:.6f} (oracle {b[k]:.6f})" for k in b))
+            # the FTRL bound above: bf16 flips of a dual move a bucket's
+            # gradient by a bf16 step and its w by at most α/β·2^-8
+            w_k = runs["fused"][0][0].double().cpu().numpy()
+            werr = np.abs(w_k - w_or)
+            tight = werr <= 1e-5 * (1 + np.abs(w_or))
+            print(f"{algo}: fused = split bitwise; final w vs oracle: max "
+                  f"{werr.max():.3e}, {tight.mean() * 100:.4f}% within "
+                  f"1e-5*(1+|w|), nnz {np.count_nonzero(w_k)} (oracle "
+                  f"{np.count_nonzero(w_or)})")
+            require(werr.max() <= 2e-3 and tight.mean() >= 0.99,
+                    f"{algo}: final weights off the oracle")
+        print(f"phase {time.perf_counter() - t0:.1f} s")
         del trained, oblocks
 
     # -- 10. timing of the training kernels ------------------------------------
@@ -1966,6 +2407,10 @@ def main() -> int:
         require(k["launches"] > 0, f"{k['name']} never launched on the "
                 "main path")
     print(f"phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 14-18. the sparse path (libsvm through main) ----------------------------
+    sparse_times = sparse_phases(torch, rng, dev, smi, auc_np)
+    print(json.dumps({"sparse_ms": sparse_times}))
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

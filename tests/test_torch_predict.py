@@ -251,11 +251,13 @@ def test_run_eval_matches_jax(tmp_path):
 
 def test_training_and_other_formats_raise(tmp_path):
     """What the port does not run yet raises NotImplementedError naming
-    ROADMAP.md, before any work: other data formats, the other handles,
-    the multihost/staleness path, checkpoint resume and device-resident
-    replay. A file written for another bucket count is a ValueError."""
+    ROADMAP.md, before any work: crec v1, dense-apply text
+    (``text_dense=true``), the multihost/staleness path, checkpoint resume
+    and device-resident replay. A file written for another bucket count is
+    a ValueError."""
     path = make_file(tmp_path / "t.crec2", seed=11, spill=False)
-    for kw, what in ((dict(data_format="libsvm"), "crec2"),
+    for kw, what in ((dict(data_format="crec"), "crec v1"),
+                     (dict(data_format="criteo"), "text_dense"),
                      (dict(staleness_tau=0), "staleness_tau"),
                      (dict(checkpoint_dir=str(tmp_path / "ck")),
                       "checkpoint_dir"),
@@ -268,8 +270,6 @@ def test_training_and_other_formats_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=what):
             app.process(path, 0, 1, "train")
     assert not (tmp_path / "ck").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.create_handle("adagrad")
     _, bad = _cfg(num_buckets=4 * TILE)
     with pytest.raises(ValueError, match="num_buckets"):
         AsyncSGD(bad, device="cpu")._run_eval(path)

@@ -1,10 +1,11 @@
 """URI-addressed byte streams, local files only.
 
-The part of ``wormhole_tpu/data/stream.py`` this slice needs: ``open_stream``
-for local paths (``file://`` or bare), ``list_files`` with the reference
+The part of ``wormhole_tpu/data/stream.py`` the port needs: ``open_stream``
+for local paths (``file://`` or bare), ``get_filesystem`` (the local file
+system the input splits read through), ``list_files`` with the reference
 WorkloadPool's ListDirectory + regex match (``workload_pool.h:46-66``), and
 ``discard_output`` for writers that fail mid-write. Remote schemes
-(``s3://``, ``hdfs://``) are not ported yet and raise.
+(``s3://``, ``hdfs://``, ``webhdfs://``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -45,6 +46,25 @@ def open_stream(uri: str, mode: str = "rb"):
         if d:
             os.makedirs(d, exist_ok=True)
     return open(path, mode)
+
+
+class LocalFileSystem:
+    """The one file system of the port: ``open`` over local paths (the
+    JAX package's ``LocalFileSystem``, which the input splits read
+    through)."""
+
+    def open(self, uri: str, mode: str = "rb"):
+        return open_stream(uri, mode)
+
+
+_LOCAL = LocalFileSystem()
+
+
+def get_filesystem(uri: str) -> LocalFileSystem:
+    """The file system that serves ``uri``: the local one, for a bare path
+    or ``file://``; any other scheme raises (not ported yet)."""
+    _local_path(uri)
+    return _LOCAL
 
 
 def _list_directory(path: str) -> List[FileInfo]:

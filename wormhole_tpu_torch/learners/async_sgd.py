@@ -1,25 +1,41 @@
-"""Online sharded-SGD app — the flagship learner, crec2 on one device.
+"""Online sharded-SGD app — the flagship learner, on one device.
 
-The counterpart of ``wormhole_tpu/learners/async_sgd.py``. It trains FTRL
-over crec2 data, validates, predicts and saves the model, on one device:
+The counterpart of ``wormhole_tpu/learners/async_sgd.py``. It trains any
+``algo`` (FTRL, SGD, AdaGrad and the delay-tolerant variants), validates,
+predicts and saves the model, on one device:
 
-    python -m wormhole_tpu_torch.learners.async_sgd data_format=crec2 \\
-        num_buckets=4194304 train_data=<f.crec2> val_data=<v.crec2> \\
-        max_data_pass=2 model_out=<model> [test_data=<t.crec2> \\
-        pred_out=<out>] [tile_step_kernel=auto|fused|split] [device=cpu]
+    python -m wormhole_tpu_torch.learners.async_sgd train_data=<f.libsvm> \\
+        val_data=<v.libsvm> num_buckets=4194304 max_data_pass=2 \\
+        [algo=ftrl|sgd|adagrad|dt_sgd|dt_adagrad|dt2_adagrad] \\
+        [data_format=libsvm|criteo|adfea|rec|recordio|crec2] \\
+        [model_out=<model>] [test_data=<t> pred_out=<out>] [device=cpu]
 
 ``run`` warm-starts from ``model_in`` (a ``save_model`` text model of either
-package), runs ``max_data_pass`` training passes over ``train_data`` — each
-block through ``store.tile_train_step``, whose metrics accumulate on the
-device and come home once per window — with a validation pass over
-``val_data`` after each, then predicts ``test_data`` (one σ(margin) per real
-row to ``pred_out``) and saves ``model_out``. On a GPU the steps run the
-hand-written kernels in ``ops/csrc`` (``tile_step_kernel=auto`` resolves to
-the fused step there). The device is ``cuda`` unless ``device=cpu`` is given;
-the token is the port's own and never enters ``Config``. Not ported yet, and
-raising ``NotImplementedError`` that names ROADMAP.md: other data formats,
-the multihost/staleness path (``staleness_tau >= 0``), ``checkpoint_dir``
-and ``cache_device``.
+package), runs ``max_data_pass`` training passes over ``train_data`` with a
+validation pass over ``val_data`` after each, then predicts ``test_data``
+(one σ(margin) per real row to ``pred_out``) and saves ``model_out``.
+
+Two data paths, as in the JAX app. The text and recordio formats stream
+through the sparse path: ``MinibatchIter`` parses (the native C++ parser
+where it builds) and re-slices into ``minibatch`` rows, the ``Localizer``
+folds and deduplicates the keys and ``pad_to_batch`` pads them
+(``pipeline_workers`` threads, ``DeviceFeed``), the batch crosses to the
+device in pinned, ``non_blocking`` copies on a side stream, and
+``store.train_step`` runs the sparse step with at most ``max_delay`` steps
+in flight; ``dt2_adagrad`` trains through the split ``dt2_pull``/
+``dt2_push`` pair, each push up to ``max_delay`` batches after its pull.
+crec2 blocks go to the device as they are and run ``store.tile_train_step``
+(the hand-written kernels in ``ops/csrc`` on a GPU; ``tile_step_kernel=auto``
+resolves to the fused step there), whose metrics accumulate on the device
+and come home once per window. Predict rides the pull-only ``ForwardStep``
+when ``serve_predict`` is set.
+
+The device is ``cuda`` unless ``device=cpu`` is given; the token is the
+port's own and never enters ``Config``. Not ported yet, and raising
+``NotImplementedError`` that names ROADMAP.md: crec v1, criteo/adfea with
+``text_dense=true``, ``tile_online=on``, the multihost/staleness path
+(``staleness_tau >= 0``), ``checkpoint_dir`` and ``cache_device``; remote
+URI schemes raise in ``data/stream.py``.
 """
 
 from __future__ import annotations
@@ -32,15 +48,23 @@ import numpy as np
 import torch
 
 from wormhole_tpu_torch.data.crec import PackedFeed, read_header2
+from wormhole_tpu_torch.data.feed import next_bucket, nnz_bucket, \
+    pad_to_batch
+from wormhole_tpu_torch.data.localizer import Localizer
+from wormhole_tpu_torch.data.minibatch import MinibatchIter
+from wormhole_tpu_torch.data.pipeline import DeviceFeed
 from wormhole_tpu_torch.data.stream import open_stream
 from wormhole_tpu_torch.device import DeviceLike, resolve_device, \
     split_device_arg
-from wormhole_tpu_torch.learners.handles import LearnRate, create_handle
-from wormhole_tpu_torch.learners.store import ShardedStore, StoreConfig
+from wormhole_tpu_torch.learners.handles import DT2AdaGradHandle, \
+    LearnRate, create_handle
+from wormhole_tpu_torch.learners.store import ShardedStore, StoreConfig, \
+    to_host_async
 from wormhole_tpu_torch.ops.metrics import auc_from_hist, auc_np
 from wormhole_tpu_torch.ops.penalty import L1L2
 from wormhole_tpu_torch.sched.workload_pool import (TEST, TRAIN, VAL,
                                                     WorkloadPool)
+from wormhole_tpu_torch.serve.forward import ForwardStep
 from wormhole_tpu_torch.utils.config import Config, Penalty, load_config
 from wormhole_tpu_torch.utils.logging import get_logger
 from wormhole_tpu_torch.utils.progress import Progress, TimeReporter
@@ -80,6 +104,7 @@ class AsyncSGD:
             store = ShardedStore(
                 StoreConfig(num_buckets=cfg.num_buckets,
                             loss=cfg.loss.value,
+                            fixed_bytes=cfg.fixed_bytes,
                             lr_theta=cfg.lr_theta,
                             param_dtype=cfg.param_dtype,
                             tile_step_kernel=cfg.tile_step_kernel,
@@ -93,6 +118,14 @@ class AsyncSGD:
         if cfg.test_data and not cfg.pred_out:
             # fail at construction, not after the whole pass
             raise ValueError("test_data set but pred_out empty")
+        self.localizer = Localizer(num_buckets=cfg.num_buckets,
+                                   tail_freq=cfg.tail_feature_freq)
+        self._max_nnz = cfg.max_nnz
+        self._warned_trunc = False
+        # DeviceFeed counters: consumer-side ring stalls, batches delivered
+        self.feed_stats = {"feed_stall": 0.0, "feed_batches": 0}
+        # the pull-only forward of a predict pass (serve_predict)
+        self._predict_forward = None
         self.progress = Progress()
         self.start_time = time.time()
         self._prev_num_ex = 0
@@ -110,10 +143,15 @@ class AsyncSGD:
 
     def _check_ported(self) -> None:
         cfg = self.cfg
-        if cfg.data_format != "crec2":
-            raise NotImplementedError(
-                f"data_format={cfg.data_format!r} is not ported yet; "
-                "the PyTorch package reads crec2 (see ROADMAP.md)")
+        fmt = cfg.data_format
+        if fmt == "crec":
+            raise _not_ported("data_format='crec' (crec v1)")
+        if fmt in ("criteo", "adfea") and cfg.text_dense:
+            raise _not_ported(
+                f"data_format={fmt!r} with text_dense=true (the dense-apply "
+                "text path; text_dense=false trains on the sparse path)")
+        if fmt != "crec2" and cfg.tile_online == "on":
+            raise _not_ported("tile_online=on (the online tile encoder)")
         if cfg.staleness_tau >= 0:
             raise _not_ported("staleness_tau >= 0 (the multihost exchange)")
         if cfg.checkpoint_dir:
@@ -129,7 +167,168 @@ class AsyncSGD:
         ``pooled``, if given, collects ``(margin, label, weight)`` of every
         real row, for pass-level metrics and predictions."""
         self._check_ported()
-        return self._process_crec(file, part, nparts, kind, pooled)
+        if self.cfg.data_format == "crec2":
+            return self._process_crec(file, part, nparts, kind, pooled)
+        return self._process_sparse(file, part, nparts, kind, pooled)
+
+    # -- the sparse SparseBatch path ----------------------------------------
+
+    def _bucket_nnz(self, blk) -> int:
+        """Resolve the (monotone) per-batch nnz bucket for ``blk``: the
+        max over every block up to and including it, so it must run in
+        stream order (the serial loop, or the DeviceFeed dispatcher ahead
+        of the pad workers). Rows beyond the bucket's 4096 cap, or beyond
+        a user-set ``max_nnz``, are truncated by position, loudly."""
+        densest = blk.max_row_nnz()
+        if not self.cfg.max_nnz:
+            self._max_nnz = max(self._max_nnz, nnz_bucket(densest))
+        if densest > self._max_nnz and not self._warned_trunc:
+            self._warned_trunc = True
+            log.warning(
+                "row with %d features truncated to max_nnz=%d "
+                "(set max_nnz to keep more)", densest, self._max_nnz)
+        return self._max_nnz
+
+    def _localize_pad(self, blk, max_nnz: int):
+        """Localize + pad one block into a host SparseBatch (stateless:
+        safe on a DeviceFeed worker thread)."""
+        loc = self.localizer.localize(blk)
+        kpad = self.cfg.key_pad or next_bucket(len(loc.uniq_keys), 64)
+        return pad_to_batch(loc, self.cfg.minibatch, max_nnz, kpad)
+
+    def _batches(self, file: str, part: int, nparts: int):
+        """stream → localize → pad → device, batch by batch. With
+        ``pipeline_workers > 0`` the stages run as a DeviceFeed (localize
+        and pad on a worker pool, the copy to the device on its own thread
+        and a side stream, a ``pipeline_ring``-deep ring ahead of the
+        step); 0 runs them inline. The batches, their order and their
+        shapes are the same either way."""
+        cfg = self.cfg
+        reader = MinibatchIter(file, part, nparts, cfg.data_format,
+                               cfg.minibatch)
+        if cfg.pipeline_workers <= 0:
+            for blk in reader:
+                max_nnz = self._bucket_nnz(blk)
+                yield self._localize_pad(blk, max_nnz).to(
+                    self.device, non_blocking=True)
+            return
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def transfer(batch):
+            return batch.to(self.device, non_blocking=True, stream=stream)
+
+        feed = DeviceFeed(reader, self._localize_pad,
+                          workers=cfg.pipeline_workers,
+                          ring_depth=cfg.pipeline_ring,
+                          seq_ctx=self._bucket_nnz, transfer=transfer,
+                          name="sparse")
+        try:
+            for batch in feed:
+                yield batch.wait()
+        finally:
+            snap = feed.drain_stats()
+            self.feed_stats["feed_stall"] += snap["consume_stall"]
+            self.feed_stats["feed_batches"] += snap["batches"]
+
+    @staticmethod
+    def _real_rows(batch) -> np.ndarray:
+        """Per-row (real, weight) for pooled eval: the first ``num_real``
+        rows are real, the rest padding — row_mask alone can't tell a
+        padded row from a real row with example weight 0."""
+        host = batch.on_host()
+        mask = host.row_mask.numpy()
+        n = host.num_real
+        real = (np.arange(len(mask)) < n) if n is not None else mask > 0
+        return np.where(real, np.maximum(mask, 0.0), -1.0)
+
+    def _process_sparse(self, file: str, part: int, nparts: int,
+                        kind: str, pooled: Optional[list]) -> Progress:
+        """The sparse path (the JAX ``process``, async_sgd.py:260-372). A
+        train batch runs ``store.train_step`` with tau = the steps still in
+        flight, after the WaitMinibatch gate has left at most
+        ``max(max_delay - 1, 0)`` of them (``max_delay=0``: no two steps
+        overlap); ``dt2_adagrad`` pulls each batch and pushes it once
+        ``max_delay`` pulls are ahead of it. A step's metrics (and an eval
+        batch's margins) come home as one async copy, resolved when the
+        gate harvests it. Validation runs with an unbounded window."""
+        cfg = self.cfg
+        fs0 = dict(self.feed_stats)
+        max_delay = cfg.max_delay if kind == TRAIN else 1 << 30
+        inflight: deque = deque()
+        local = Progress()
+
+        def harvest(item) -> None:
+            fetch, labels, keep = item
+            m = fetch()
+            local.num_ex += int(m[1])
+            local.count += 1
+            local.objv += float(m[0])
+            local.auc += float(m[2])
+            local.acc += float(m[3])
+            if kind == TRAIN:
+                if len(m) > 4:
+                    local.wdelta2 += float(m[4])
+                self._display(local)
+            elif pooled is not None:
+                margin = m[4:]
+                real = keep >= 0   # real rows (weight-0 rows included)
+                pooled.append((margin[real], labels[real], keep[real]))
+
+        def gate() -> None:
+            while len(inflight) > max(max_delay - 1, 0):
+                harvest(inflight.popleft())
+
+        store = self.store
+        if kind == TRAIN and isinstance(getattr(store, "handle", None),
+                                        DT2AdaGradHandle):
+            for batch in self._batches(file, part, nparts):
+                grad, snap, metrics = store.dt2_pull(batch)
+                inflight.append((batch, grad, snap,
+                                 to_host_async(torch.stack(metrics))))
+                while len(inflight) > max(max_delay - 1, 0):
+                    b, g, s, t = inflight.popleft()
+                    store.dt2_push(b, g, s)
+                    harvest((t.resolve, None, None))
+            while inflight:
+                b, g, s, t = inflight.popleft()
+                store.dt2_push(b, g, s)
+                harvest((t.resolve, None, None))
+            self._merge_feed_progress(local, fs0)
+            return local
+
+        for batch in self._batches(file, part, nparts):
+            gate()
+            if kind == TRAIN:
+                metrics = store.train_step(batch, tau=float(len(inflight)))
+                ticket = to_host_async(torch.stack(metrics))
+                inflight.append((ticket.resolve, None, None))
+                continue
+            keep = self._real_rows(batch)
+            labels = batch.on_host().labels.numpy()
+            if kind == TEST and self._predict_forward is not None:
+                # offline predict rides the serving forward; eval metrics
+                # mean nothing on unlabeled TEST data, only the margin
+                ticket = to_host_async(self._predict_forward.margins(batch))
+                head = np.array([0.0, float((keep >= 0).sum()), 0.5, 0.0])
+
+                def fetch(t=ticket, h=head):
+                    return np.concatenate([h, t.resolve()])
+            else:
+                objv, num_ex, a, acc, margin = store.eval_step(batch)
+                fetch = to_host_async(torch.cat(
+                    [torch.stack([objv, num_ex, a, acc]), margin])).resolve
+            inflight.append((fetch, labels, keep))
+        while inflight:                      # WaitMinibatch(0)
+            harvest(inflight.popleft())
+        self._merge_feed_progress(local, fs0)
+        return local
+
+    def _merge_feed_progress(self, local: Progress, before: dict) -> None:
+        """Fold this part's DeviceFeed counter deltas into its Progress."""
+        fs = self.feed_stats
+        local.feed_stall += fs["feed_stall"] - before["feed_stall"]
+        local.feed_batches += fs["feed_batches"] - before["feed_batches"]
 
     # -- deferred train metrics (the on-device accumulator) ------------------
 
@@ -332,18 +531,26 @@ class AsyncSGD:
         """TEST workload (reference workload.proto:12-16): stream the test
         data and write one prediction per real row to ``out_path`` —
         σ(margin) for logit loss (linear.h MarginToPred), the raw margin
-        otherwise."""
+        otherwise. With ``serve_predict`` the sparse path's margins come
+        from the pull-only ``ForwardStep``."""
         if not out_path:
             raise ValueError("test_data set but pred_out empty")
+        if self.cfg.serve_predict and hasattr(self.store,
+                                              "build_serve_margin"):
+            self._predict_forward = ForwardStep.from_store(self.store)
         pool = WorkloadPool()
         pool.add(pattern, self.cfg.num_parts_per_file, TEST)
         pooled: list = []
-        while True:
-            wl = pool.get("predict")
-            if wl is None:
-                break
-            self.process(wl.file, wl.part, wl.nparts, TEST, pooled=pooled)
-            pool.finish(wl.id)
+        try:
+            while True:
+                wl = pool.get("predict")
+                if wl is None:
+                    break
+                self.process(wl.file, wl.part, wl.nparts, TEST,
+                             pooled=pooled)
+                pool.finish(wl.id)
+        finally:
+            self._predict_forward = None
         self._write_preds(pooled, out_path)
 
     def _write_preds(self, pooled: list, out_path: str) -> None:
@@ -357,13 +564,18 @@ class AsyncSGD:
             f.write("".join(f"{p:.6g}\n" for p in preds.tolist()))
         log.info("wrote %d predictions to %s", len(preds), out_path)
 
+    def _key_fold(self) -> str:
+        """The key->bucket scheme of this run's data_format, recorded in
+        and checked against saved models: crec2 folds u32 keys with mix32,
+        the sparse path 64-bit ids with splitmix64 (data/hashing.py)."""
+        return "mix32" if self.cfg.data_format == "crec2" else "splitmix64"
+
     def _store_io(self, op: str, path: str):
-        """save/load the model with the key-fold tag: crec2 folds keys with
-        mix32 (data/hashing.py)."""
+        """save/load the model with the key-fold tag."""
         if op == "save":
-            self.store.save_model(path, 0, key_fold="mix32")
+            self.store.save_model(path, 0, key_fold=self._key_fold())
         else:
-            self.store.load_model(path, expect_key_fold="mix32")
+            self.store.load_model(path, expect_key_fold=self._key_fold())
 
     # -- display and stop rules -----------------------------------------------
 

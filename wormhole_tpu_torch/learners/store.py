@@ -1,10 +1,23 @@
-"""Parameter store: the model table and the crec2 tile steps, one device.
+"""Parameter store: the model table, the sparse steps and the crec2 tile
+steps, one device.
 
-The counterpart of ``wormhole_tpu/learners/store.py`` for the single-device
-crec2 path. The model is one ``(val_len, num_buckets)`` tensor on the
-store's device — plane-major, unlike the JAX store's ``(num_buckets,
-val_len)``, so each plane is contiguous (``handles.py``).
-``from_jax_slots``/``to_jax_slots`` carry slots across in the JAX layout.
+The counterpart of ``wormhole_tpu/learners/store.py`` on one device. The
+model is one ``(val_len, num_buckets)`` tensor on the store's device —
+plane-major, unlike the JAX store's ``(num_buckets, val_len)``, so each
+plane is contiguous (``handles.py``). ``from_jax_slots``/``to_jax_slots``
+carry slots across in the JAX layout.
+
+The sparse ``SparseBatch`` steps (the text and recordio formats) are the
+JAX store's jitted gather, spmv and scatter written as torch ops:
+``train_step`` gathers the batch's unique bucket rows, computes margins and
+the gradient (``ops/spmv.py``, whose sum into the key axis is in a fixed
+order on every device), quantizes it when ``fixed_bytes`` is set
+(``quantize_dequantize``, the FIXING_FLOAT filter), applies the handle to
+the gathered rows and writes back ``rows + (new − rows)·key_mask`` for the
+real keys only. ``eval_step`` and the serving forward share one margin
+function (``build_serve_margin``). ``dt2_pull``/``dt2_push`` split the
+step for the delay-compensated handle, the pull snapshotting each key's
+cumulative gradient.
 
 The tile eval step runs a crec2 block through ``tilemm.forward_margins`` (the
 ``csrc/tile_fwd.cu`` kernel on a CUDA device) and the metric tail, and
@@ -42,7 +55,8 @@ from wormhole_tpu_torch.learners.handles import FTRLHandle, Handle
 from wormhole_tpu_torch.ops import tilemm
 from wormhole_tpu_torch.ops.loss import create_loss, loss_key, \
     nudge_zero_dual
-from wormhole_tpu_torch.ops.metrics import accuracy, margin_hist
+from wormhole_tpu_torch.ops.metrics import accuracy, auc, margin_hist
+from wormhole_tpu_torch.ops.spmv import spmv_times, spmv_trans_times
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -76,10 +90,50 @@ def masked_push(handle: Handle, s32: torch.Tensor, grad: torch.Tensor, t,
     return torch.sum(d0 * d0)
 
 
+def quantize_dequantize(g: torch.Tensor, bits: int) -> torch.Tensor:
+    """The fixed-point round trip of the sparse gradient (the FIXING_FLOAT
+    value transform, wormhole_tpu/parallel/filters.py:105): symmetric
+    b-bit levels around 0 with scale max|g| + 1e-30, in the JAX order
+    ``round(g / scale * levels) * (scale / levels)``; ``torch.round``
+    rounds half to even as ``jnp.round`` does."""
+    scale = torch.max(torch.abs(g)) + 1e-30
+    levels = float(2 ** (bits - 1) - 1)
+    q = torch.round(g / scale * levels)
+    return q * (scale / torch.full((), levels, dtype=torch.float32,
+                                   device=g.device))
+
+
+def gather_rows(slots: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """The f32 rows of the plane-major table at bucket ids ``keys``:
+    (val_len, len(keys)). ``keys`` may hold int32 ids."""
+    return slots[:, keys.to(torch.int64)].to(torch.float32)
+
+
+def write_rows(slots: torch.Tensor, batch, rows: torch.Tensor,
+               delta: torch.Tensor) -> None:
+    """``slots.at[uniq_keys].add(delta)`` of the JAX store, for the real
+    keys only: they are unique and come first (``pad_to_batch``), so each
+    row is written once, as ``rows + delta`` in the storage dtype, and the
+    padding's zero deltas on bucket 0 are never written."""
+    k = batch.num_keys
+    keys = batch.uniq_keys[:k].to(torch.int64)
+    if slots.dtype == torch.float32:
+        slots[:, keys] = rows[:, :k] + delta[:, :k]
+    else:
+        slots[:, keys] = slots[:, keys] + delta[:, :k].to(slots.dtype)
+
+
+def batch_metrics(labels, margin, row_mask):
+    """(num_ex, auc, acc) of a sparse batch, as 0-d tensors."""
+    return (torch.sum(row_mask), auc(labels, margin, row_mask),
+            accuracy(labels, margin, row_mask))
+
+
 @dataclass
 class StoreConfig:
     num_buckets: int = 1 << 20
     loss: str = "logit"
+    fixed_bytes: int = 0      # 0 = exact; 1 = 8-bit quantized sparse grads
     lr_theta: float = 1.0     # staleness weight for the DT handles
     param_dtype: str = "float32"  # slots storage dtype ("float32" or
                                   # "bfloat16"; compute always runs in f32)
@@ -104,6 +158,20 @@ class MetricTicket:
         return self.host.numpy()
 
 
+def to_host_async(t: torch.Tensor) -> MetricTicket:
+    """A ticket for ``t``'s value on the host: on CUDA a ``non_blocking``
+    copy into pinned host memory and the event recorded after it (the
+    host waits only when it resolves the ticket); on the CPU ``t``
+    itself."""
+    if t.device.type != "cuda":
+        return MetricTicket(t)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return MetricTicket(host, event)
+
+
 class TableCheckpoint:
     """The step clock and the on-device metric accumulator of the
     table-backed stores (wormhole_tpu/learners/store.py:281-356). The
@@ -120,22 +188,14 @@ class TableCheckpoint:
         return self._macc
 
     def fetch_metrics_async(self) -> MetricTicket:
-        """Hand the accumulator over and start a fresh one; on CUDA its
-        value starts a ``non_blocking`` copy into pinned host memory, and
-        the ticket resolves on the event recorded after it — the device
-        never drains waiting on a metrics round trip."""
+        """Hand the accumulator over and start a fresh one; its value comes
+        home through ``to_host_async`` — the device never drains waiting
+        on a metrics round trip."""
         buf = getattr(self, "_macc", None)
         self._macc = None
         if buf is None:
             return MetricTicket(torch.zeros(self.MACC_LEN))
-        if buf.device.type != "cuda":
-            return MetricTicket(buf)
-        host = torch.empty(self.MACC_LEN, dtype=torch.float32,
-                           pin_memory=True)
-        host.copy_(buf, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return MetricTicket(host, event)
+        return to_host_async(buf)
 
     def fetch_metrics(self) -> np.ndarray:
         """Blocking fetch-and-reset of the metric accumulator."""
@@ -155,7 +215,7 @@ class ShardedStore(TableCheckpoint):
         self.cfg = cfg
         self.handle = handle
         self.device = resolve_device(device)
-        self.objv_fn = create_loss(cfg.loss)[0]
+        self.objv_fn, self.dual_fn = create_loss(cfg.loss)
         if cfg.param_dtype not in _DTYPES:
             raise ValueError(f"param_dtype {cfg.param_dtype!r}: want "
                              "float32 or bfloat16")
@@ -170,11 +230,87 @@ class ShardedStore(TableCheckpoint):
     def _weights(self, slots: torch.Tensor) -> torch.Tensor:
         return self.handle.weights(slots).to(torch.float32)
 
+    # -- the sparse SparseBatch steps -------------------------------------
+
+    def _sparse_grad(self, rows: torch.Tensor, batch):
+        """(margin, objv, grad) of a batch against its gathered rows."""
+        margin = spmv_times(batch.cols, batch.vals, self.handle.weights(rows))
+        objv = self.objv_fn(margin, batch.labels, batch.row_mask)
+        dual = self.dual_fn(margin, batch.labels, batch.row_mask)
+        grad = spmv_trans_times(batch.cols, batch.vals, dual, rows.shape[1])
+        return margin, objv, grad
+
+    def train_step(self, batch, tau: float = 0.0):
+        """One sparse step (the JAX ``_build_step``, store.py:400): pull,
+        forward, backward, the optional 8-bit quantization, the handle's
+        update at the step clock ``t`` and staleness ``tau``, and the push
+        of the real keys' rows. Returns (objv, num_ex, auc, acc, wdelta2)
+        as 0-d tensors."""
+        rows = gather_rows(self.slots, batch.uniq_keys)
+        margin, objv, grad = self._sparse_grad(rows, batch)
+        if self.cfg.fixed_bytes:
+            grad = quantize_dequantize(grad, 8 * self.cfg.fixed_bytes)
+        new_rows = self.handle.apply(rows, grad, float(self.t),
+                                     self._tau_const(tau))
+        delta = (new_rows - rows) * batch.key_mask
+        write_rows(self.slots, batch, rows, delta)
+        self.t += 1
+        num_ex, a, acc = batch_metrics(batch.labels, margin, batch.row_mask)
+        return objv, num_ex, a, acc, torch.sum(delta[0] * delta[0])
+
+    def eval_step(self, batch):
+        """(objv, num_ex, auc, acc, margin) of a batch, through the serve
+        margin function (the JAX ``_build_eval``, store.py:464)."""
+        margin = self.build_serve_margin()(self.serve_params(), batch)
+        objv = self.objv_fn(margin, batch.labels, batch.row_mask)
+        return (objv,) + batch_metrics(batch.labels, margin,
+                                       batch.row_mask) + (margin,)
+
+    def dt2_pull(self, batch):
+        """The pull half of the delay-compensated step (the JAX
+        ``dt2_pull``, store.py:1059): the gradient against the current
+        weights and each key's cumulative-gradient slot at pull time.
+        Returns (grad, snapshot, (objv, num_ex, auc, acc))."""
+        rows = gather_rows(self.slots, batch.uniq_keys)
+        margin, objv, grad = self._sparse_grad(rows, batch)
+        return grad, rows[1], (objv,) + batch_metrics(
+            batch.labels, margin, batch.row_mask)
+
+    def dt2_push(self, batch, grad: torch.Tensor,
+                 snap: torch.Tensor) -> None:
+        """The push half: apply the delayed gradient with its pull-time
+        snapshot (DT2's rule reads neither the clock nor tau); advances
+        the step clock as the JAX ``dt2_push`` does."""
+        rows = gather_rows(self.slots, batch.uniq_keys)
+        new_rows = self.handle.apply(rows, grad, 0.0, 0.0, gsum_snap=snap)
+        write_rows(self.slots, batch, rows,
+                   (new_rows - rows) * batch.key_mask)
+        self.t += 1
+
+    def pull(self, keys: np.ndarray) -> np.ndarray:
+        """Debug/oracle surface: weights for explicit bucket ids."""
+        keys = torch.as_tensor(np.asarray(keys, np.int64),
+                               device=self.device)
+        return self._weights(self.slots)[keys].cpu().numpy()
+
     # -- pull-only serving surface ------------------------------------------
 
     def serve_params(self):
         """Live model params for the pull-only forward (serve/forward.py)."""
         return {"slots": self.slots}
+
+    def build_serve_margin(self):
+        """margin_fn(params, batch) -> (mb,) margins: the pull of the
+        batch's weights and the spmv, nothing else (the JAX store's,
+        store.py:451; ``eval_step`` runs the same function)."""
+        handle = self.handle
+
+        def margin_fn(params, batch):
+            w = handle.weights(params["slots"])[
+                batch.uniq_keys.to(torch.int64)].to(torch.float32)
+            return spmv_times(batch.cols, batch.vals, w)
+
+        return margin_fn
 
     # -- the crec2 tile step ------------------------------------------------
 

@@ -1,6 +1,7 @@
-"""Pieces the FM and wide&deep crec2 tile stores share: the block decode,
-the packed metric row, the completion ticket, the bucket-major slot table
-and the CLI's ``key=val`` routing."""
+"""Pieces the FM and wide&deep stores share: the crec2 block decode, the
+packed metric row, the completion ticket, the bucket-major slot table, the
+sparse step's row gather and write-back, and the CLI's ``key=val``
+routing."""
 
 from __future__ import annotations
 
@@ -58,6 +59,21 @@ def step_ticket(device: torch.device):
     event = torch.cuda.Event()
     event.record()
     return event
+
+
+def gather_bucket_rows(slots: torch.Tensor, batch) -> torch.Tensor:
+    """The (kpad, width) rows of the bucket-major table at the batch's
+    unique keys."""
+    return slots[batch.uniq_keys.to(torch.int64)]
+
+
+def write_bucket_rows(slots: torch.Tensor, batch, rows: torch.Tensor,
+                      delta: torch.Tensor) -> None:
+    """``slots.at[uniq_keys].add(delta)`` of the JAX stores for the real
+    keys only (unique, first in ``uniq_keys``): each row written once as
+    ``rows + delta``; the padding's zero deltas on bucket 0 never are."""
+    k = batch.num_keys
+    slots[batch.uniq_keys[:k].to(torch.int64)] = rows[:k] + delta[:k]
 
 
 def init_slots(num_buckets: int, k: int, init_scale: float,

@@ -1,11 +1,23 @@
-"""Factorization machine on crec2 tiles, one device.
+"""Factorization machine, one device.
 
-The counterpart of ``wormhole_tpu/models/fm.py`` for the crec2 tile path:
+The counterpart of ``wormhole_tpu/models/fm.py``, on the sparse path (the
+text and recordio formats) and on crec2 tiles:
 
-    python -m wormhole_tpu_torch.models.fm data_format=crec2 \\
-        num_buckets=4194304 dim=8 train_data=<f.crec2> val_data=<v.crec2> \\
-        max_data_pass=2 model_out=<m> [test_data=<t.crec2> pred_out=<p>] \\
-        [tile_step_kernel=auto|fused|split] [device=cpu]
+    python -m wormhole_tpu_torch.models.fm num_buckets=4194304 dim=8 \\
+        train_data=<f> val_data=<v> max_data_pass=2 model_out=<m> \\
+        [data_format=libsvm|criteo|adfea|rec|crec2] \\
+        [test_data=<t> pred_out=<p>] [tile_step_kernel=auto|fused|split] \\
+        [device=cpu]
+
+Forward (Rendle 2010): margin = Σ wᵢxᵢ + ½ Σ_f [(Σᵢ v_{if}xᵢ)² − Σᵢ v²_{if}x²ᵢ].
+The sparse step (``train_step``) gathers the batch's unique rows, computes
+the margin over the padded ``(mb, nnz, k)`` factors, and writes its
+backward out by hand where JAX takes ``jax.grad``: the per-entry gradients
+w: dual·x and v: dual·(s − v·x)·x, summed into the keys in flat order
+(``ops/spmv.segment_sum``, the same bits on every run), plus the weight
+decay on v; then AdaGrad with the L1L2 prox on w and plain AdaGrad on v,
+written back for the real keys. ``eval_step`` and the serving forward share
+``build_serve_margin``.
 
 Each bucket row holds ``[w, v_1..v_k, cg_w, cg_v1..cg_vk]`` (a weight, a
 k-dim factor and their AdaGrad accumulators) in one bucket-major
@@ -19,8 +31,7 @@ AdaGrad with weight decay on v, touched buckets only) are torch elementwise
 ops, as they were XLA ops in JAX. On a CUDA device ``tile_step_kernel=auto``
 resolves the fused step ``tilemm.fused_fm_step`` (#8), spill blocks included.
 
-Not ported yet: the sparse ``SparseBatch`` step (slice 4), the mesh step
-(slice 5), ``with_num_buckets`` and the serving surface (slice 6).
+Not ported yet: the mesh step (slice 5) and ``with_num_buckets`` (slice 6).
 """
 
 from __future__ import annotations
@@ -32,15 +43,19 @@ import numpy as np
 import torch
 
 from wormhole_tpu_torch.device import DeviceLike, resolve_device
-from wormhole_tpu_torch.learners.store import TableCheckpoint
+from wormhole_tpu_torch.learners.handles import scalar_like, sqrt_rn
+from wormhole_tpu_torch.learners.store import TableCheckpoint, batch_metrics
 from wormhole_tpu_torch.models._tile import (EVAL_RECORD, check_slots,
                                              decode_block, eval_metrics,
-                                             init_slots, metric_row,
-                                             model_config, route_cli,
-                                             step_ticket)
+                                             gather_bucket_rows, init_slots,
+                                             metric_row, model_config,
+                                             route_cli, step_ticket,
+                                             write_bucket_rows)
 from wormhole_tpu_torch.ops import tilemm
 from wormhole_tpu_torch.ops.loss import create_loss, loss_key
 from wormhole_tpu_torch.ops.penalty import L1L2
+from wormhole_tpu_torch.ops.spmv import segment_index, segment_sum, \
+    spmv_times
 from wormhole_tpu_torch.utils.config import apply_kvs
 
 
@@ -62,13 +77,31 @@ class FMConfig:
                                      # always records off
 
 
+def fm_forward(theta: torch.Tensor, batch):
+    """(margin, vx, s) of a batch: ``theta`` (kpad, 1+k) holds [w, v] of
+    its local keys, ``vx`` (mb, nnz, k) the value-weighted factors and
+    ``s`` their row sums (the JAX ``fm_margin``, fm.py:65)."""
+    w, v = theta[:, 0], theta[:, 1:]
+    lin = spmv_times(batch.cols, batch.vals, w)
+    vx = v[batch.cols.to(torch.int64)] * batch.vals[..., None]
+    s = torch.sum(vx, 1)
+    s2 = torch.sum(vx * vx, 1)
+    return lin + 0.5 * torch.sum(s * s - s2, -1), vx, s
+
+
+def fm_margin(theta: torch.Tensor, batch) -> torch.Tensor:
+    """(mb,) FM margins of a batch from its (kpad, 1+k) [w, v] rows."""
+    return fm_forward(theta, batch)[0]
+
+
 class FMStore(TableCheckpoint):
-    """FM parameters and the crec2 tile train/eval steps on one device."""
+    """FM parameters and the sparse and crec2 tile train/eval steps on one
+    device."""
 
     def __init__(self, cfg: FMConfig, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.objv_fn = create_loss(cfg.loss)[0]
+        self.objv_fn, self.dual_fn = create_loss(cfg.loss)
         rng = np.random.default_rng(cfg.seed)
         self.slots = torch.from_numpy(init_slots(
             cfg.num_buckets, cfg.dim, cfg.init_scale, rng)).to(self.device)
@@ -77,6 +110,64 @@ class FMStore(TableCheckpoint):
         self._tile_cache: dict = {}
         self._tile_kernel: dict = {}
         self.step_kernel = None
+
+    # -- the sparse SparseBatch step ------------------------------------------
+
+    def train_step(self, batch, tau: float = 0.0):
+        """One sparse FM step (the JAX ``_build_step``, fm.py:104); returns
+        (objv, num_ex, auc, acc, wdelta2) as 0-d tensors."""
+        cfg = self.cfg
+        k = cfg.dim
+        rows = gather_bucket_rows(self.slots, batch)
+        theta, cg = rows[:, :1 + k], rows[:, 1 + k:]
+        margin, vx, s = fm_forward(theta, batch)
+        objv = self.objv_fn(margin, batch.labels, batch.row_mask)
+        dual = self.dual_fn(margin, batch.labels, batch.row_mask)
+        # d margin / d w[key] = x and d margin / d v[key] = (s − v·x)·x per
+        # entry; each key's entries summed in flat order
+        x = batch.vals[..., None]
+        contrib = torch.cat([x * dual[:, None, None],
+                             dual[:, None, None] * (s[:, None, :] - vx) * x],
+                            -1)
+        g = segment_sum(segment_index(batch.cols, rows.shape[0]),
+                        contrib.reshape(-1, 1 + k))
+        km = batch.key_mask[:, None]
+        v = theta[:, 1:]
+        grads = torch.cat([g[:, :1], g[:, 1:] + cfg.l2_v * (v * km) * km], 1)
+        cg_new = sqrt_rn(cg * cg + grads * grads)
+        eta = scalar_like(cfg.lr_alpha, cg_new) / (cfg.lr_beta + cg_new)
+        # w: AdaGrad + L1L2 prox (the AdaGrad handle's rule); v: AdaGrad
+        w_new = L1L2(cfg.l1, cfg.l2).solve(
+            theta[:, 0] / eta[:, 0] - grads[:, 0],
+            scalar_like(1.0, eta) / eta[:, 0])
+        v_new = v - eta[:, 1:] * grads[:, 1:]
+        new_rows = torch.cat([w_new[:, None], v_new, cg_new], 1)
+        delta = (new_rows - rows) * km
+        write_bucket_rows(self.slots, batch, rows, delta)
+        self.t += 1
+        num_ex, a, acc = batch_metrics(batch.labels, margin, batch.row_mask)
+        return objv, num_ex, a, acc, torch.sum(delta[:, 0] * delta[:, 0])
+
+    def eval_step(self, batch):
+        """(objv, num_ex, auc, acc, margin) through the serve margin."""
+        margin = self.build_serve_margin()(self.serve_params(), batch)
+        objv = self.objv_fn(margin, batch.labels, batch.row_mask)
+        return (objv,) + batch_metrics(batch.labels, margin,
+                                       batch.row_mask) + (margin,)
+
+    # -- pull-only serving surface (serve/forward.py) ------------------------
+
+    def serve_params(self):
+        return {"slots": self.slots}
+
+    def build_serve_margin(self):
+        k = self.cfg.dim
+
+        def margin_fn(params, batch):
+            return fm_margin(gather_bucket_rows(params["slots"], batch)
+                             [:, :1 + k], batch)
+
+        return margin_fn
 
     # -- the crec2 tile step ------------------------------------------------
 

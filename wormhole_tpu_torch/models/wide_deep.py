@@ -1,15 +1,26 @@
-"""Wide & Deep on crec2 tiles, one device.
+"""Wide & Deep, one device.
 
-The counterpart of ``wormhole_tpu/models/wide_deep.py`` for the crec2 tile
-path:
+The counterpart of ``wormhole_tpu/models/wide_deep.py``, on the sparse path
+(the text and recordio formats) and on crec2 tiles:
 
-    python -m wormhole_tpu_torch.models.wide_deep data_format=crec2 \\
-        num_buckets=4194304 dim=16 hidden=64,32 train_data=<f.crec2> \\
-        val_data=<v.crec2> max_data_pass=2 model_out=<m> \\
-        [test_data=<t.crec2> pred_out=<p>] [tile_step_kernel=auto|fused|split]
+    python -m wormhole_tpu_torch.models.wide_deep num_buckets=4194304 \\
+        dim=16 hidden=64,32 train_data=<f> val_data=<v> max_data_pass=2 \\
+        model_out=<m> [data_format=libsvm|criteo|adfea|rec|crec2] \\
+        [test_data=<t> pred_out=<p>] [tile_step_kernel=auto|fused|split] \\
         [device=cpu]
 
-margin(row) = Σ w[b] + MLP(Σ v[b]) over the row's hashed features. The
+margin(row) = Σ wᵢxᵢ + MLP(Σ xᵢ·vᵢ) over the row's hashed features. The
+sparse step (``train_step``) gathers the batch's unique rows, pools the
+value-weighted embeddings, runs the MLP and takes its vjp
+(``torch.func.vjp`` of ``tilemm.mlp_forward``; f32 matmuls with TF32 off),
+and writes the backward of the gathers by hand where JAX takes ``jax.grad``:
+the per-entry gradients w: dual·x and v: g_pooled·x summed into the keys in
+flat order (``ops/spmv.segment_sum``, the same bits on every run), plus the
+weight decay on v; then AdaGrad on the table rows (written back for the
+real keys) and on the MLP. ``eval_step`` and the serving forward share
+``build_serve_margin``.
+
+On crec2 tiles, margin(row) = Σ w[b] + MLP(Σ v[b]) over binary features. The
 sparse part is one bucket-major ``(num_buckets, 2(1+k))`` f32 table ``[w, v,
 cg_w, cg_v]`` (the JAX layout), the dense part an MLP dict ``{W_i, b_i}`` with
 its AdaGrad accumulators. Both pooled sums come from one tile pull of the 1+k
@@ -21,9 +32,8 @@ CUDA device ``tile_step_kernel=auto`` resolves the fused step
 blocks; spill blocks run split. The AdaGrad updates of the table and of the
 MLP are torch elementwise ops.
 
-Not ported yet: the sparse ``SparseBatch`` step (slice 4), the mesh step
-(slice 5), ``state_pytree``/``restore_pytree`` (checkpoint resume),
-``with_num_buckets`` and the serving surface (slice 6).
+Not ported yet: the mesh step (slice 5), ``state_pytree``/
+``restore_pytree`` (checkpoint resume) and ``with_num_buckets`` (slice 6).
 """
 
 from __future__ import annotations
@@ -35,14 +45,18 @@ import numpy as np
 import torch
 
 from wormhole_tpu_torch.device import DeviceLike, resolve_device
-from wormhole_tpu_torch.learners.store import TableCheckpoint
+from wormhole_tpu_torch.learners.handles import scalar_like, sqrt_rn
+from wormhole_tpu_torch.learners.store import TableCheckpoint, batch_metrics
 from wormhole_tpu_torch.models._tile import (EVAL_RECORD, check_slots,
                                              decode_block, eval_metrics,
-                                             init_slots, metric_row,
-                                             model_config, route_cli,
-                                             step_ticket)
+                                             gather_bucket_rows, init_slots,
+                                             metric_row, model_config,
+                                             route_cli, step_ticket,
+                                             write_bucket_rows)
 from wormhole_tpu_torch.ops import tilemm
 from wormhole_tpu_torch.ops.loss import create_loss, loss_key
+from wormhole_tpu_torch.ops.spmv import segment_index, segment_sum, \
+    spmv_times
 from wormhole_tpu_torch.utils.config import apply_kvs
 
 
@@ -89,13 +103,13 @@ def _to_numpy(tree: dict) -> Dict[str, np.ndarray]:
 
 
 class WideDeepStore(TableCheckpoint):
-    """Embedding table + MLP and the crec2 tile train/eval steps on one
-    device."""
+    """Embedding table + MLP and the sparse and crec2 tile train/eval
+    steps on one device."""
 
     def __init__(self, cfg: WideDeepConfig, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.objv_fn = create_loss(cfg.loss)[0]
+        self.objv_fn, self.dual_fn = create_loss(cfg.loss)
         k = cfg.dim
         rng = np.random.default_rng(cfg.seed)
         self.slots = torch.from_numpy(init_slots(
@@ -110,6 +124,81 @@ class WideDeepStore(TableCheckpoint):
         self._tile_cache: dict = {}
         self._tile_kernel: dict = {}
         self.step_kernel = None
+
+    # -- the sparse SparseBatch step ------------------------------------------
+
+    def _forward(self, theta: torch.Tensor, batch):
+        """(wide, pooled) of a batch from its (kpad, 1+k) [w, v] rows (the
+        JAX ``_forward``, wide_deep.py:113, before the MLP)."""
+        wide = spmv_times(batch.cols, batch.vals, theta[:, 0])
+        v = theta[:, 1:]
+        pooled = torch.sum(v[batch.cols.to(torch.int64)]
+                           * batch.vals[..., None], 1)
+        return wide, pooled
+
+    def train_step(self, batch, tau: float = 0.0):
+        """One sparse wide&deep step (the JAX ``_build_step``,
+        wide_deep.py:121); returns (objv, num_ex, auc, acc, wdelta2) as 0-d
+        tensors."""
+        cfg = self.cfg
+        k = cfg.dim
+        n_layers = self.n_layers
+        rows = gather_bucket_rows(self.slots, batch)
+        theta, cg = rows[:, :1 + k], rows[:, 1 + k:]
+        wide, pooled = self._forward(theta, batch)
+        deep, vjp = torch.func.vjp(
+            lambda m, x: tilemm.mlp_forward(m, x, n_layers), self.mlp, pooled)
+        margin = wide + deep
+        objv = self.objv_fn(margin, batch.labels, batch.row_mask)
+        dual = self.dual_fn(margin, batch.labels, batch.row_mask)
+        g_mlp, g_pooled = vjp(dual)
+        # d margin / d w[key] = x and d margin / d v[key] = g_pooled·x per
+        # entry; each key's entries summed in flat order
+        x = batch.vals[..., None]
+        contrib = torch.cat([x * dual[:, None, None],
+                             x * g_pooled[:, None, :]], -1)
+        g = segment_sum(segment_index(batch.cols, rows.shape[0]),
+                        contrib.reshape(-1, 1 + k))
+        km = batch.key_mask[:, None]
+        v = theta[:, 1:]
+        g_theta = torch.cat([g[:, :1], g[:, 1:] + cfg.l2_v * (v * km) * km],
+                            1)
+        cg_new = sqrt_rn(cg * cg + g_theta * g_theta)
+        eta = scalar_like(cfg.lr_alpha, cg_new) / (cfg.lr_beta + cg_new)
+        new_rows = torch.cat([theta - eta * g_theta, cg_new], 1)
+        delta = (new_rows - rows) * km
+        write_bucket_rows(self.slots, batch, rows, delta)
+        self.mlp_accum = {n: sqrt_rn(a * a + g_mlp[n] * g_mlp[n])
+                          for n, a in self.mlp_accum.items()}
+        self.mlp = {n: p - scalar_like(cfg.lr_alpha_dense, p)
+                    / (cfg.lr_beta + self.mlp_accum[n]) * g_mlp[n]
+                    for n, p in self.mlp.items()}
+        self.t += 1
+        num_ex, a, acc = batch_metrics(batch.labels, margin, batch.row_mask)
+        return objv, num_ex, a, acc, torch.sum(delta[:, 0] * delta[:, 0])
+
+    def eval_step(self, batch):
+        """(objv, num_ex, auc, acc, margin) through the serve margin."""
+        margin = self.build_serve_margin()(self.serve_params(), batch)
+        objv = self.objv_fn(margin, batch.labels, batch.row_mask)
+        return (objv,) + batch_metrics(batch.labels, margin,
+                                       batch.row_mask) + (margin,)
+
+    # -- pull-only serving surface (serve/forward.py) ------------------------
+
+    def serve_params(self):
+        return {"slots": self.slots, "mlp": self.mlp}
+
+    def build_serve_margin(self):
+        k = self.cfg.dim
+        n_layers = self.n_layers
+
+        def margin_fn(params, batch):
+            theta = gather_bucket_rows(params["slots"], batch)[:, :1 + k]
+            wide, pooled = self._forward(theta, batch)
+            return wide + tilemm.mlp_forward(params["mlp"], pooled, n_layers)
+
+        return margin_fn
 
     # -- the crec2 tile step ------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Evaluation metrics: thresholded accuracy, margin histograms, AUC.
+"""Evaluation metrics: sort-based AUC, thresholded accuracy, margin
+histograms.
 
 The counterpart of ``wormhole_tpu/ops/metrics.py`` (reference
 ``learn/linear/base/evaluation.h:38-88``): the device-side pieces take a row
@@ -9,6 +10,23 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def auc(labels: torch.Tensor, margin: torch.Tensor,
+        mask: torch.Tensor) -> torch.Tensor:
+    """Per-minibatch AUC via the weighted Mann-Whitney statistic, as the
+    JAX ``auc``: ``mask`` doubles as the row weight, masked rows sort first
+    at -inf, ties keep their row order (a stable argsort), and an empty
+    class gives 0.5."""
+    pos_w = (labels > 0.5).to(torch.float32) * mask
+    neg_w = mask - pos_w
+    key = torch.where(mask > 0, margin, torch.full_like(margin, -torch.inf))
+    order = torch.argsort(key, stable=True)
+    spos, sneg = pos_w[order], neg_w[order]
+    cumneg = torch.cumsum(sneg, 0) - sneg    # negative weight ranked below
+    wpos, wneg = torch.sum(pos_w), torch.sum(neg_w)
+    a = torch.sum(spos * cumneg) / torch.clamp(wpos * wneg, min=1e-30)
+    return torch.where((wpos > 0) & (wneg > 0), a, torch.full_like(a, 0.5))
 
 
 def accuracy(labels: torch.Tensor, margin: torch.Tensor, mask: torch.Tensor,

@@ -53,6 +53,10 @@ class Progress:
     wdelta2 = property(lambda s: s._fget("wdelta2"),
                        lambda s, v: s._fset("wdelta2", v))
     nnz_w = property(lambda s: s._iget("nnz_w"), lambda s, v: s._iset("nnz_w", v))
+    feed_stall = property(lambda s: s._fget("feed_stall"),
+                          lambda s, v: s._fset("feed_stall", v))
+    feed_batches = property(lambda s: s._iget("feed_batches"),
+                            lambda s, v: s._iset("feed_batches", v))
 
     def merge(self, other: "Progress") -> "Progress":
         self.fvec += other.fvec
