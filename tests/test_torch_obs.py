@@ -146,7 +146,13 @@ def test_ledger_from_the_same_events_equals_the_jax_ledger(tmp_path, clock):
         want = jax_ledger(jledger.build(evs, wall_s=wall))
         assert tledger.build(evs, wall_s=wall) == want
     assert tledger.BUCKETS == jledger.BUCKETS
-    assert tledger.SPAN_TABLE == jledger.SPAN_TABLE
+    # the port adds its store-step stages and their device track
+    port_only = {k: v for k, v in tledger.SPAN_TABLE.items()
+                 if k not in jledger.SPAN_TABLE}
+    assert tledger.SPAN_TABLE == {**jledger.SPAN_TABLE, **port_only}
+    assert set(port_only) == {"step:pull", "step:kernel", "step:spill",
+                              "step:update", "step:tail", "device:*"}
+    assert set(port_only.values()) == {"device_compute"}
     for name in list(jledger.SPAN_TABLE) + ["eval_wait", "x:put",
                                             "train:encode", "a_stall",
                                             "collective:allreduce_max",

@@ -20,9 +20,9 @@ from wormhole_tpu_torch.analysis.engine import PACKAGE, Checker, FileContext
 # which instrumentation only uses for the eval_ fold)
 _SCOPE_PAT = re.compile(
     r"\.scope\(\s*(?:\w+\s*\+\s*)?" + r"['\"]([^'\"]+)['\"]")
-# literal span/complete names
+# literal span/complete/stage names
 _SPAN_LIT_PAT = re.compile(
-    r"trace\.(?:span|complete)" + r"\(\s*['\"]([^'\"]+)['\"]")
+    r"trace\.(?:span|complete|stage)" + r"\(\s*['\"]([^'\"]+)['\"]")
 # f-string span/complete names with a literal prefix before the first
 # placeholder — the prefix must match a `prefix*` table pattern
 _SPAN_FPAT = re.compile(

@@ -570,6 +570,9 @@ class AsyncSGD:
                            final: bool = True) -> None:
         self._harvest_macc(local, self._crec_hist, self._crec_count, final)
         self._crec_count = 0
+        # the store step's traced stages that the device has passed (all
+        # of them after a final harvest's wait): device time into the timer
+        obs.trace.resolve_stages(self.timer.add)
 
     def flush_metrics(self) -> Progress:
         """Drain any deferred crec2 metrics; returns the tail Progress

@@ -56,6 +56,7 @@ import glob as _glob
 import os
 import re
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
 
@@ -706,6 +707,7 @@ class ShardedStore(TableCheckpoint):
             return fn
         exact_dense = zero_grad_push_is_identity(self.handle)
         handle, objv_fn = self.handle, self.objv_fn
+        dev = self.device
         spec = info.spec
         oc = info.ovf_cap
         loss = loss_key(self.cfg.loss)
@@ -727,7 +729,9 @@ class ShardedStore(TableCheckpoint):
 
         def finish(margin, labels, row_mask, wdelta2):
             # the shared metric tail: the same ops downstream of the
-            # margins in every variant
+            # margins in every variant; its stage ends after the
+            # accumulator add (tile_train_step)
+            trace.stage("step:tail", dev)
             objv = objv_fn(margin, labels, row_mask)
             num_ex = torch.sum(row_mask)
             acc = accuracy(labels, margin, row_mask)
@@ -747,30 +751,38 @@ class ShardedStore(TableCheckpoint):
                 return objv, num_ex, acc, pos, neg, margin
         elif fused_update:
             def step(s32, block, t, tau):
+                trace.stage("step:kernel", dev)
                 pw, labels, row_mask, _, _ = decode(block)
                 margin, wd2 = tilemm.fused_step_update(
                     pw, s32, labels, row_mask, spec, loss, handle)
                 return finish(margin, labels, row_mask, wd2)
         elif fused:
             def step(s32, block, t, tau):
-                pw, labels, row_mask, ovf_b, ovf_r = decode(block)
                 w = handle.weights(s32)
-                sp = (tilemm.spill_margin_rows(w, ovf_b, ovf_r, spec)
-                      if oc else None)
+                sp = None
+                if oc:
+                    trace.stage("step:spill", dev)
+                    sp = tilemm.spill_margin_rows(w, block["ovf_b"],
+                                                  block["ovf_r"], spec)
+                trace.stage("step:kernel", dev)
+                pw, labels, row_mask, ovf_b, ovf_r = decode(block)
                 margin, grad = tilemm.fused_step_grad(
                     pw, w, labels, row_mask, spec, loss, exact_dense,
                     spill_margins=sp)
                 if oc:
                     # the spill pairs' duals, recomputed from the emitted
                     # margins by the same device math: the kernel's bits
+                    trace.stage("step:spill", dev)
                     dual = tilemm.loss_dual(margin, labels, row_mask, loss,
                                             exact_dense)
                     grad = tilemm.spill_grad_scatter(grad, dual, ovf_b,
                                                      ovf_r, spec)
+                    trace.stage("step:kernel", dev)
                 wd2 = masked_push(handle, s32, grad, t, tau, exact_dense)
                 return finish(margin, labels, row_mask, wd2)
         else:
             def step(s32, block, t, tau):
+                trace.stage("step:kernel", dev)
                 pw, labels, row_mask, ovf_b, ovf_r = decode(block)
                 w = handle.weights(s32)
                 margin = tilemm.forward_margins(pw, w, spec, ovf_b, ovf_r)
@@ -797,18 +809,18 @@ class ShardedStore(TableCheckpoint):
         (``fetch_metrics``). Returns a completion ticket: a CUDA event
         recorded after the step (None on the CPU, where the step has
         finished on return), so the learner can bound the steps in flight
-        without draining the device."""
+        without draining the device. Its stages are ``trace.stage``
+        spans (``step:kernel``, ``step:spill``, ``step:tail``)."""
         step = self._tile_step(info, "train")
         s32 = (self.slots if self.slots.dtype == torch.float32
                else self.slots.to(torch.float32))
-        if self.step_kernel[0].startswith("fused"):
-            with trace.span("tilemm:fused_step", cat="tile"):
-                row = step(s32, block, float(self.t), self._tau_const(tau))
-        else:
+        with (trace.span("tilemm:fused_step", cat="tile")
+              if self.step_kernel[0].startswith("fused") else nullcontext()):
             row = step(s32, block, float(self.t), self._tau_const(tau))
+            self._macc_buf().add_(row)
+            trace.stage(None, self.device)
         if s32 is not self.slots:
             self.slots.copy_(s32)
-        self._macc_buf().add_(row)
         self.t += 1
         if self.device.type != "cuda":
             return None

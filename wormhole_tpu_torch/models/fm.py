@@ -48,6 +48,7 @@ the model-axis sum sits between its pulls and its boundary.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
 
@@ -248,6 +249,7 @@ class FMStore(TableCheckpoint):
         loss = loss_key(cfg.loss)
         penalty = L1L2(cfg.l1, cfg.l2)
         spec, oc = info.spec, info.ovf_cap
+        dev = self.device
         res = tilemm.resolve_step_kernel(
             cfg.tile_step_kernel, ovf_cap=oc, spec=spec, channels=k + 2,
             onehot_cache=cfg.tile_onehot_cache, device=self.device)
@@ -260,8 +262,11 @@ class FMStore(TableCheckpoint):
 
         def update(s32, push, margin, labels, row_mask):
             # everything downstream of the push buffer: the same torch ops
-            # in the fused and split programs
+            # in the fused and split programs; the tail's stage ends after
+            # the accumulator add (tile_train_step)
+            trace.stage("step:update", dev)
             new, wdelta2 = fm_tile_update(s32, push, cfg, penalty)
+            trace.stage("step:tail", dev)
             return new, metric_row(objv_fn, margin, labels, row_mask,
                                    wdelta2)
 
@@ -275,15 +280,21 @@ class FMStore(TableCheckpoint):
                 return eval_metrics(objv_fn, margin, labels, row_mask)
         elif fused:
             def step(slots, block, tau):
-                pw, labels, row_mask, ovf_b, ovf_r = decode_block(block, oc)
+                trace.stage("step:pull", dev)
                 wpull = make_wpull(slots)
                 if oc:
                     # the spill pulls ride into the step as a grid operand;
                     # the step hands back the push rows for the scatter
-                    sp = tilemm.spill_pull_rows(wpull, ovf_b, ovf_r, spec)
+                    trace.stage("step:spill", dev)
+                    sp = tilemm.spill_pull_rows(wpull, block["ovf_b"],
+                                                block["ovf_r"], spec)
+                trace.stage("step:kernel", dev)
+                pw, labels, row_mask, ovf_b, ovf_r = decode_block(block, oc)
+                if oc:
                     margin, push, dv = tilemm.fused_fm_step(
                         pw, wpull, labels, row_mask, spec, k, loss,
                         spill_pulls=sp)
+                    trace.stage("step:spill", dev)
                     push = tilemm.spill_push_scatter(push, dv, ovf_b, ovf_r,
                                                      spec)
                 else:
@@ -292,9 +303,11 @@ class FMStore(TableCheckpoint):
                 return update(slots, push, margin, labels, row_mask)
         else:
             def step(slots, block, tau):
+                trace.stage("step:pull", dev)
+                wpull = make_wpull(slots)
+                trace.stage("step:kernel", dev)
                 pw, labels, row_mask, ovf_b, ovf_r = decode_block(block, oc)
-                pulls = tilemm.forward_pulls(pw, make_wpull(slots), spec,
-                                             ovf_b, ovf_r)
+                pulls = tilemm.forward_pulls(pw, wpull, spec, ovf_b, ovf_r)
                 margin, dvals = tilemm.fm_boundary(pulls, labels, row_mask,
                                                    k, loss)
                 push = tilemm.backward_pushes(pw, dvals, spec, ovf_b, ovf_r)
@@ -310,15 +323,14 @@ class FMStore(TableCheckpoint):
         """One crec2 train step over a device block dict. The metric row
         adds into the on-device accumulator (``fetch_metrics``). Returns a
         completion ticket: a CUDA event recorded after the step, or None on
-        the CPU."""
+        the CPU. Its stages are ``trace.stage`` spans (``step:pull``,
+        ``step:kernel``, ``step:spill``, ``step:update``, ``step:tail``)."""
         step = self._tile_step(info, "train")
-        if self.step_kernel[0] == "fused":
-            with trace.span("tilemm:fused_multi", cat="tile"):
-                self.slots, row = step(self.slots, block,
-                                       self._tau_const(tau))
-        else:
+        with (trace.span("tilemm:fused_multi", cat="tile")
+              if self.step_kernel[0] == "fused" else nullcontext()):
             self.slots, row = step(self.slots, block, self._tau_const(tau))
-        self._macc_buf().add_(row)
+            self._macc_buf().add_(row)
+            trace.stage(None, self.device)
         self.t += 1
         return step_ticket(self.device)
 

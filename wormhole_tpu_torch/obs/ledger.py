@@ -109,6 +109,18 @@ SPAN_TABLE: Dict[str, str] = {
     # the wide&deep MLP forward/vjp at the step's phase boundary
     "tilemm:fused_cached": "device_compute",
     "tilemm:mlp_phase": "device_compute",
+    # the port's store-step stages inside the tile train step
+    # (obs/trace.py ``stage``): host spans of the step's launches, nested
+    # in the tilemm span where there is one
+    "step:pull": "device_compute",
+    "step:kernel": "device_compute",
+    "step:spill": "device_compute",
+    "step:update": "device_compute",
+    "step:tail": "device_compute",
+    # the same stages' device intervals, on the trace's device track
+    # (trace.DEVICE_TID): build() attributes one thread only, so they
+    # never add to the step loop's wall time
+    "device:*": "device_compute",
     # online serving (serve/): the pull-only forward is device work;
     # the snapshot hot-swap is a reference assignment outside any step
     "serve:forward": "device_compute",

@@ -27,8 +27,22 @@ Design constraints, in order:
    separate Perfetto tracks and stage overlap is visible.
 
 Events are stored as tuples and formatted only at :func:`flush`; the
-record path does no dict building, no JSON, no I/O. Device time is not a
-span here: ``torch.profiler`` reads it.
+record path does no dict building, no JSON, no I/O.
+
+**Store-step stages.** The tile train steps mark their stages with
+:func:`stage` (``step:pull``, ``step:kernel``, ``step:spill``,
+``step:update``, ``step:tail``, category ``step``): each call closes the
+thread's open stage as a host span and opens the next. On a CUDA device
+each boundary also records a timing event on the current stream, from a
+reused pool; :func:`resolve_stages` turns the completed ones into the
+device time of each stage, with no synchronize of its own: a complete
+event ``device:<stage>`` (category ``device``) on the ``device`` track
+(:data:`DEVICE_TID`), on the host ``time.monotonic()`` clock through one
+anchor event recorded right after a synchronize at the first traced
+boundary, and one ``sink(name, seconds)`` call per stage and step (the
+learner's ``Timer.add``). At most :data:`STAGE_MARKS` boundaries wait
+unresolved; past that they are dropped and counted
+(:func:`stages_dropped`).
 """
 
 from __future__ import annotations
@@ -43,7 +57,8 @@ from typing import Iterator, Optional
 
 __all__ = ["enable", "disable", "enabled", "configure", "complete",
            "span", "instant", "counter", "events", "summary", "reset",
-           "dropped", "flush", "write_trace"]
+           "dropped", "flush", "write_trace", "stage", "resolve_stages",
+           "stages_dropped", "clock_drift_s"]
 
 # module-global fast path: `if not _ENABLED: return` is the entire cost
 # of every record call while tracing is off
@@ -55,6 +70,15 @@ _T0 = 0.0                      # monotonic base; ts are relative to it
 _WALL_T0 = 0.0                 # wall clock at _T0 (merge.py alignment)
 _DROPPED = 0                   # ring evictions since configure()
 _TID_NAMES: dict = {}          # tid -> thread name (first event wins)
+
+# store-step stages (see the module docstring); cleared by configure()
+DEVICE_TID = 1                 # the device track: no OS thread's ident
+STAGE_MARKS = 4096             # unresolved device boundaries held at most
+_STAGE_OPEN: dict = {}         # tid -> (stage, host t0, its mark, totals)
+_MARKS: "deque" = deque()      # unresolved device boundaries, oldest first
+_EVENT_POOL: list = []         # timing events free for reuse
+_ANCHOR = None                 # (timing event, monotonic s) after a sync
+_STAGE_DROPPED = 0             # boundaries not recorded: _MARKS was full
 
 # event tuples: (ph, name, cat, ts_us, dur_us, tid, arg)
 _PH_COMPLETE = "X"
@@ -87,8 +111,14 @@ def configure(trace_path: str = "", ring: int = 1 << 16,
     overrides the recorder's process rank (the Obs hub passes the rank
     it was constructed with — authoritative over the env sniffing)."""
     global _ENABLED, _RING, _PATH, _PID, _T0, _WALL_T0, _DROPPED
+    global _ANCHOR, _STAGE_DROPPED
     on = bool(trace_path) if enabled is None else enabled
     _PATH = trace_path or None
+    _STAGE_OPEN.clear()
+    _EVENT_POOL.clear()
+    _MARKS.clear()
+    _ANCHOR = None
+    _STAGE_DROPPED = 0
     if on:
         _RING = deque(maxlen=max(int(ring), 16))
         _TID_NAMES.clear()
@@ -116,12 +146,13 @@ def enabled() -> bool:
 
 
 def _record(ph: str, name: str, cat: str, ts: float, dur: float,
-            arg=None) -> None:
+            arg=None, tid: Optional[int] = None) -> None:
     global _DROPPED
-    t = threading.current_thread()
-    tid = t.ident or 0
-    if tid not in _TID_NAMES:
-        _TID_NAMES[tid] = t.name
+    if tid is None:
+        t = threading.current_thread()
+        tid = t.ident or 0
+        if tid not in _TID_NAMES:
+            _TID_NAMES[tid] = t.name
     if len(_RING) == _RING.maxlen:
         # the append below silently evicts the oldest event; count it so
         # a truncated trace is detectable (summary counter + flush
@@ -161,6 +192,123 @@ def span(name: str, cat: str = "",
     finally:
         _record(_PH_COMPLETE, name, cat, t0, time.monotonic() - t0,
                 dict(args) if args else None)
+
+
+class _Mark:
+    """One device boundary: its event (None once resolved), the stage it
+    opens (None at the step's end), the boundary before it on its thread
+    (None after a drop), its device time from the anchor in seconds once
+    resolved, and its step's per-stage device totals."""
+    __slots__ = ("ev", "opens", "prev", "t", "totals")
+
+    def __init__(self, ev, opens, prev, totals):
+        self.ev, self.opens, self.prev = ev, opens, prev
+        self.t, self.totals = None, totals
+
+
+def _new_event():
+    import torch
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _synchronize() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def stage(name: Optional[str], device=None) -> None:
+    """Store-step stage boundary: close this thread's open stage and open
+    ``name`` (None only closes: the step's end). On a CUDA ``device`` the
+    boundary is also a timing event on the current stream. A single bool
+    check while tracing is off."""
+    if not _ENABLED:
+        return
+    _stage(name, device is not None and device.type == "cuda")
+
+
+def _stage(name: Optional[str], cuda: bool) -> None:
+    global _ANCHOR, _STAGE_DROPPED
+    if cuda and _ANCHOR is None:
+        # host-sync: once per trace session, the anchor that puts the
+        # device track on the host clock
+        _synchronize()
+        ev = _new_event()
+        _ANCHOR = (ev, time.monotonic())
+        ev.record()
+    tid = threading.get_ident()
+    open_ = _STAGE_OPEN.pop(tid, None)
+    now = time.monotonic()
+    prev, totals = None, {}
+    if open_ is not None:
+        _record(_PH_COMPLETE, open_[0], "step", open_[1], now - open_[1])
+        prev, totals = open_[2], open_[3]
+    mark = None
+    if cuda:
+        if len(_MARKS) >= STAGE_MARKS:
+            _STAGE_DROPPED += 1
+        else:
+            ev = _EVENT_POOL.pop() if _EVENT_POOL else _new_event()
+            ev.record()
+            mark = _Mark(ev, name, prev, totals)
+            _MARKS.append(mark)
+    if name is not None:
+        # a fresh clock read: the next span starts after this boundary's
+        # bookkeeping, so sibling spans never overlap once rounded to the
+        # trace's ns (the ledger would clamp the later one away)
+        _STAGE_OPEN[tid] = (name, time.monotonic(), mark, totals)
+
+
+def resolve_stages(sink=None) -> int:
+    """Turn the completed device boundaries, oldest first, into stage
+    intervals: each goes to the ring as ``device:<stage>`` on the device
+    track, and at a step's end ``sink("device:<stage>", seconds)`` is
+    called once for each stage of that step. Only boundaries whose event
+    ``query()`` is true resolve; nothing waits. Returns the steps
+    handed to ``sink``."""
+    if not _MARKS:
+        return 0
+    anchor_ev, anchor_t = _ANCHOR
+    steps = 0
+    while _MARKS and _MARKS[0].ev.query():
+        m = _MARKS.popleft()
+        m.t = anchor_ev.elapsed_time(m.ev) / 1e3
+        _EVENT_POOL.append(m.ev)
+        m.ev = None
+        p, m.prev = m.prev, None
+        if p is not None and p.t is not None:
+            if DEVICE_TID not in _TID_NAMES:
+                _TID_NAMES[DEVICE_TID] = "device"
+            dur = m.t - p.t
+            _record(_PH_COMPLETE, "device:" + p.opens, "device",
+                    anchor_t + p.t, dur, tid=DEVICE_TID)
+            m.totals[p.opens] = m.totals.get(p.opens, 0.0) + dur
+        if m.opens is None:
+            if sink is not None:
+                for k, v in m.totals.items():
+                    sink("device:" + k, v)
+            steps += 1
+    return steps
+
+
+def stages_dropped() -> int:
+    """Device boundaries not recorded since :func:`configure` because
+    :data:`STAGE_MARKS` were waiting unresolved."""
+    return _STAGE_DROPPED
+
+
+def clock_drift_s() -> Optional[float]:
+    """The device clock's advance since the anchor less the host clock's,
+    in seconds, read through a fresh event after a synchronize (None
+    before any CUDA stage boundary). A diagnostic: it waits on the
+    device, so never call it inside a step loop."""
+    if _ANCHOR is None:
+        return None
+    _synchronize()  # host-sync: a diagnostic outside the step loop
+    t = time.monotonic()
+    ev = _new_event()
+    ev.record()
+    ev.synchronize()  # host-sync: the same diagnostic
+    return _ANCHOR[0].elapsed_time(ev) / 1e3 - (t - _ANCHOR[1])
 
 
 def instant(name: str, cat: str = "") -> None:
